@@ -1,0 +1,73 @@
+"""Evaluation: counterpart of ``sug_tpu/engine/evaluation.py``.
+
+Overall, per-class and mean-class accuracy and the average loss over a
+loader. The last batch is zero-padded to the first batch's size and a
+``valid`` mask drops the pad rows from every sum, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Iterable, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as Fn
+
+from sug_tpu_torch import resolve_device
+from sug_tpu_torch.losses.classification import cross_entropy
+
+
+class Evaluator:
+    """``apply_fn(data) -> logits`` must already ensemble heads if
+    applicable; it runs under ``torch.no_grad()`` on ``device``."""
+
+    def __init__(self, apply_fn: Callable[[torch.Tensor], torch.Tensor],
+                 num_class: int = 10, device="cuda"):
+        self.apply_fn = apply_fn
+        self.num_class = num_class
+        self.device = resolve_device(device)
+
+    def _step(self, data, label, valid) -> Dict[str, torch.Tensor]:
+        logits = self.apply_fn(data)
+        loss_sum = torch.sum(cross_entropy(logits, label, reduction="none") * valid)
+        correct = (torch.argmax(logits, dim=-1) == label).float() * valid
+        onehot = Fn.one_hot(label, self.num_class).float() * valid[:, None]
+        return {
+            "loss_sum": loss_sum,
+            "correct": torch.sum(correct),
+            "count": torch.sum(valid),
+            "cls_correct": torch.sum(onehot * correct[:, None], dim=0),
+            "cls_count": torch.sum(onehot, dim=0),
+        }
+
+    @torch.no_grad()
+    def run(self, batches: Iterable[Tuple[np.ndarray, np.ndarray]]) -> Dict:
+        totals = None
+        pad_to = None
+        for data, label in batches:
+            data, label = np.asarray(data), np.asarray(label)
+            if pad_to is None:
+                pad_to = data.shape[0]
+            n = data.shape[0]
+            valid = np.ones(pad_to, dtype=np.float32)
+            if n < pad_to:
+                pad = pad_to - n
+                data = np.concatenate([data, np.zeros((pad,) + data.shape[1:], data.dtype)])
+                label = np.concatenate([label, np.zeros(pad, label.dtype)])
+                valid[n:] = 0.0
+            m = self._step(
+                torch.from_numpy(np.ascontiguousarray(data, dtype=np.float32)).to(self.device),
+                torch.from_numpy(label.astype(np.int64)).to(self.device),
+                torch.from_numpy(valid).to(self.device),
+            )
+            totals = m if totals is None else {k: totals[k] + m[k] for k in totals}
+        if totals is None:
+            raise ValueError("empty eval loader")
+        totals = {k: v.cpu().numpy() for k, v in totals.items()}  # one transfer each
+        cls_acc = totals["cls_correct"] / np.maximum(totals["cls_count"], 1.0)
+        return {
+            "overall_acc": float(totals["correct"] / totals["count"]),
+            "avg_loss": float(totals["loss_sum"] / totals["count"]),
+            "class_acc": cls_acc,
+            "mean_class_acc": float(cls_acc[totals["cls_count"] > 0].mean()),
+        }

@@ -1,0 +1,86 @@
+"""DGCNN backbone with the SA-node module: counterpart of
+``sug_tpu/models/dgcnn.py``.
+
+Each EdgeConv block splits its Dense kernel W (2C, F) into the neighbour and
+centre halves W1 = W[:C], W2 = W[C:], so that the edge activation is
+``a_j = u[nbr_j] + v`` with ``u = x @ W1`` and ``v = x @ (W2 - W1)``. The
+EdgeConv kernel returns max/min/sum/sumsq of ``a`` over the k=20 neighbours;
+since BN's per-channel affine and leaky_relu are monotone, the block output
+``max_j lrelu(BN(a_j))`` is ``lrelu(BN(amax))`` where the BN slope is >= 0
+and ``lrelu(BN(amin))`` where it is negative.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as Fn
+from torch import nn
+
+from sug_tpu_torch.models.adapt_node import SelfAdaptiveNodeModule
+from sug_tpu_torch.models.bn import EPS, BatchNorm
+from sug_tpu_torch.ops.edgeconv import fused_edgeconv_reduce
+
+K_NEIGHBORS = 20
+
+
+class EdgeConvBlock(nn.Module):
+    """One EdgeConv block, the counterpart of ``_EdgeConvBlock``: kNN-20
+    graph -> Dense + BN + leaky_relu(0.01) -> max over the neighbours.
+    Eval mode only; the BN train path comes with the training slice."""
+
+    def __init__(self, in_features: int, features: int):
+        super().__init__()
+        self.conv_dense = nn.Linear(2 * in_features, features, bias=False)
+        self.bn_scale = nn.Parameter(torch.ones(features))
+        self.bn_bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("bn_mean", torch.zeros(features))
+        self.register_buffer("bn_var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "EdgeConvBlock train mode comes with the training slice (ROADMAP.md); "
+                "call .eval() for inference"
+            )
+        C = x.shape[-1]
+        w = self.conv_dense.weight  # (F, 2C): torch Linear layout
+        w1, w2 = w[:, :C], w[:, C:]
+        u = torch.matmul(x, w1.t())
+        v = torch.matmul(x, (w2 - w1).t())
+        amax, amin, _, _, _ = fused_edgeconv_reduce(x, u, v, K_NEIGHBORS)
+
+        inv = self.bn_scale * torch.rsqrt(self.bn_var + EPS)  # signed slopes
+        off = self.bn_bias - self.bn_mean * inv
+        sel = torch.where(inv >= 0, amax, amin)
+        return Fn.leaky_relu(sel * inv + off, negative_slope=0.01)
+
+
+class DGCNNGenerator(nn.Module):
+    """DG generator: (B, N, 3) -> (global_feat (B, 1024), node_fea
+    (B, 64, 64), node_offset (B, 64, 3))."""
+
+    def __init__(self):
+        super().__init__()
+        self.block1 = EdgeConvBlock(3, 64)
+        self.block2 = EdgeConvBlock(64, 64)
+        self.sa_node = SelfAdaptiveNodeModule(64)
+        self.reproject = nn.Linear(128, 64)
+        self.block3 = EdgeConvBlock(64, 128)
+        self.block4 = EdgeConvBlock(128, 256)
+        self.conv5 = nn.Linear(512, 512, bias=False)
+        self.bn5 = BatchNorm(512)
+
+    def forward(self, pc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        x1 = self.block1(pc)
+        x2 = self.block2(x1)
+        x_up, node_fea, node_off = self.sa_node(x2, pc)
+        x2 = self.reproject(x_up)
+        x3 = self.block3(x2)
+        x4 = self.block4(x3)
+        x5 = self.conv5(torch.cat([x1, x2, x3, x4], dim=-1))  # (B, N, 512)
+        x5 = Fn.leaky_relu(self.bn5(x5), negative_slope=0.2)
+        gmax = torch.amax(x5, dim=1)
+        gavg = torch.mean(x5, dim=1)
+        return torch.cat([gmax, gavg], dim=-1), node_fea, node_off

@@ -1,0 +1,85 @@
+"""Shared building blocks: counterparts of ``sug_tpu/models/layers.py``.
+
+Dense layers act on the last axis (channels-last), as flax's ``nn.Dense``.
+Submodule names follow the JAX tree, with flax's auto-names renamed
+(``Dense_0`` -> ``dense0``, ``Dense_1`` -> ``dense1``, ``BatchNorm_0`` ->
+``bn``, ``LayerNorm_0`` -> ``ln``; see ``utils/jax_bridge.py``).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as Fn
+from torch import nn
+
+from sug_tpu_torch.models.bn import BatchNorm
+
+
+def flax_init_(module: nn.Module) -> None:
+    """Initialise every ``nn.Linear`` in ``module`` as flax's ``nn.Dense``
+    is: kernel ``lecun_normal`` (a normal of variance 1/fan_in truncated at
+    two standard deviations), bias zeros. Torch's default (uniform, variance
+    1/(3 fan_in)) shrinks activations layer by layer, and a random DGCNN
+    then gives nearly the same logits for every cloud."""
+    for m in module.modules():
+        if isinstance(m, nn.Linear):
+            # flax divides by the truncated normal's own stddev, 0.8796...
+            std = m.in_features**-0.5 / 0.87962566103423978
+            nn.init.trunc_normal_(m.weight, std=std, a=-2.0 * std, b=2.0 * std)
+            if m.bias is not None:
+                nn.init.zeros_(m.bias)
+
+
+def activation(x: torch.Tensor, name: str, negative_slope: float = 0.01) -> torch.Tensor:
+    if name == "relu":
+        return torch.relu(x)
+    if name == "leakyrelu":
+        return Fn.leaky_relu(x, negative_slope=negative_slope)
+    if name == "tanh":
+        return torch.tanh(x)
+    raise ValueError(f"unknown activation {name}")
+
+
+class ConvBN(nn.Module):
+    """Dense (biased) + BatchNorm + activation (leaky slope 0.01), the
+    reference's ``conv_2d``."""
+
+    def __init__(self, in_features: int, features: int, act: str = "relu"):
+        super().__init__()
+        self.act = act
+        self.dense0 = nn.Linear(in_features, features)
+        self.bn = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return activation(self.bn(self.dense0(x)), self.act)
+
+
+class FCLayer(nn.Module):
+    """Dense + LayerNorm (eps 1e-5) + activation (leaky slope 0.2), the
+    reference's ``fc_layer``."""
+
+    def __init__(self, in_features: int, features: int, act: str = "leakyrelu",
+                 use_bias: bool = False):
+        super().__init__()
+        self.act = act
+        self.dense0 = nn.Linear(in_features, features, bias=use_bias)
+        self.ln = nn.LayerNorm(features, eps=1e-5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return activation(self.ln(self.dense0(x)), self.act, negative_slope=0.2)
+
+
+class CALayer(nn.Module):
+    """Squeeze-excite channel attention over flattened node features (B, D):
+    Dense down/up (reduction 8) + sigmoid gate, ``x*y + x``, then BatchNorm
+    over the D features."""
+
+    def __init__(self, features: int = 64 * 64, reduction: int = 8):
+        super().__init__()
+        self.dense0 = nn.Linear(features, features // reduction)
+        self.dense1 = nn.Linear(features // reduction, features)
+        self.bn = BatchNorm(features)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.sigmoid(self.dense1(torch.relu(self.dense0(x))))
+        return self.bn(x * y + x)

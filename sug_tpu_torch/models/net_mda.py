@@ -1,0 +1,72 @@
+"""NetMDA, the twin-head DG model: counterpart of
+``sug_tpu/models/net_mda.py`` for ``model_name="DGCNN"``, sequential
+forward only.
+
+The stacked both-domains forward, the gradient-reversal layer and the other
+backbones come with later slices (ROADMAP.md, "Modules to port").
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from sug_tpu_torch.models.dgcnn import DGCNNGenerator
+from sug_tpu_torch.models.heads import ClassifierHead
+from sug_tpu_torch.models.layers import CALayer, flax_init_
+
+DOMAINS = (None, "source", "target", "both")
+
+
+class NetMDA(nn.Module):
+    """Generator ``g`` + twin heads ``c1``/``c2`` + per-domain channel
+    attention ``attention_s``/``attention_t``.
+
+    ``forward`` returns a dict: logits1, logits2 (B, num_class); sem1, sem2
+    (B, 256); global_feat (B, 1024); node_flat (B, 64*64), flattened
+    node-major; node_offset; and node_attn (domain 'source' or 'target') or
+    node_attn and node_attn_t (domain 'both').
+    """
+
+    def __init__(self, model_name: str = "DGCNN", num_class: int = 10):
+        super().__init__()
+        if model_name != "DGCNN":
+            raise NotImplementedError(
+                f"NetMDA({model_name!r}) is not ported yet; the port's backbones are "
+                "queued in ROADMAP.md under 'Modules to port'"
+            )
+        self.model_name = model_name
+        self.g = DGCNNGenerator()
+        self.c1 = ClassifierHead(num_class)
+        self.c2 = ClassifierHead(num_class)
+        self.attention_s = CALayer()
+        self.attention_t = CALayer()
+        flax_init_(self)
+
+    def forward(self, pc: torch.Tensor, domain: Optional[str] = None) -> Dict[str, torch.Tensor]:
+        if domain not in DOMAINS:
+            raise ValueError(
+                f"domain must be one of {DOMAINS}, got {domain!r} (the stacked "
+                "forward comes with the training slice)"
+            )
+        feat, node_fea, node_off = self.g(pc)
+        node_flat = node_fea.reshape(feat.shape[0], -1)
+
+        out: Dict[str, torch.Tensor] = {"node_flat": node_flat, "node_offset": node_off}
+        if domain in ("source", "both"):
+            out["node_attn"] = self.attention_s(node_flat)
+        if domain in ("target", "both"):
+            out["node_attn_t" if domain == "both" else "node_attn"] = self.attention_t(node_flat)
+
+        logits1, sem1 = self.c1(feat)
+        logits2, sem2 = self.c2(feat)
+        out.update(logits1=logits1, logits2=logits2, sem1=sem1, sem2=sem2, global_feat=feat)
+        return out
+
+
+def ensemble_logits(model: NetMDA, pc: torch.Tensor) -> torch.Tensor:
+    """The twin-head DG ensemble ``(logits1 + logits2) / 2`` used to classify."""
+    out = model(pc)
+    return (out["logits1"] + out["logits2"]) / 2.0
