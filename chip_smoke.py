@@ -8,18 +8,25 @@ Needs one CUDA card (an H100: the kernels are built for ``sm_90a``) and
 ends the run with a non-zero exit; the phases, in order:
 
 1. card: ``nvidia-smi`` name and power limit, and the torch device name;
-2. build: every CUDA source of the main path, compiled from the checkout,
-   with its seconds and the ``-Xptxas -v`` register and shared-memory lines;
+2. build: every CUDA source of the main paths, compiled from the checkout
+   (one ``nvcc`` each, started together), with its seconds and the
+   ``-Xptxas -v`` register and shared-memory lines;
 3. kernels against their plain PyTorch versions on the card, at the shapes
-   the DGCNN twin-head forward gives them at B=64, at ragged sizes (N=1000,
-   S=61), and on exact-tie inputs;
-4. the slice: ``sug_tpu_torch.infer`` (``--dg --batch_size 64``) on a
-   synthetic ``--pts`` file and a synthetic 10-class dataset tree, with
-   seeded weights, counting kernel launches; then the logits of 16 clouds
-   against the same weights on the CPU plain path;
+   the DGCNN twin-head forward and backward give them at B=64, at ragged
+   sizes (N=1000, S=61), on exact-tie inputs, and (backward) at N=2000,
+   which takes two key tiles; two backward launches must agree bit for bit;
+4. the slices through their entry points, counting kernel launches:
+   ``sug_tpu_torch.infer`` (``--dg --batch_size 64``) on synthetic clouds
+   and a synthetic dataset, with seeded weights, and its logits of 16 clouds
+   against the CPU plain path; then ``sug_tpu_torch.train_dg_single_gpu``
+   (``DG_unified_loss.yaml``, DGCNN, batch 64, 1024 points) for one epoch on
+   a synthetic PointDA tree, and ``--resume`` from its checkpoint for a
+   second; then one ``_loss(train=True)`` of the DG trainer at B=8 on the
+   card against the CPU plain path;
 5. times, with CUDA events after warm-up: each kernel shape beside its bound
-   and its plain version, the forward per batch of 64, and peak memory;
-   then the forward's device time by kernel from ``torch.profiler``.
+   and its plain version, the inference forward per batch of 64, and the DG
+   train step at B=64+64 with its peak memory; each with a
+   ``torch.profiler`` breakdown of device time by kernel.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -27,6 +34,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -34,12 +42,15 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+
+edgeconv = None  # sug_tpu_torch.ops.edgeconv, imported by main() once a card is found
 
 B = 64  # the serving batch of infer.py
 N_POINTS = 1024
@@ -71,6 +82,21 @@ REL_TOL = 1e-5
 # the slice on the card against the CPU plain path, over 16 clouds
 MAX_LOGIT_DIFF = 1e-2
 MAX_ARGMAX_DISAGREE = 1
+# one DG _loss(train=True) at B=8 on the card against the CPU plain path:
+# losses to 1e-3 relative; gradients (with the MMD losses off, whose sigma=
+# 0.01 kernel amplifies the rounding of zero self-distances by 5000) to 1e-2
+# relative L2 per parameter, a parameter whose gradient is zero up to
+# rounding measured against 1e-2 of the largest one's norm. Near-tied
+# neighbours may be ordered differently by cuBLAS and the kernel.
+CARD_B = 8
+MAX_LOSS_REL = 1e-3
+MAX_GRAD_REL_L2 = 1e-2
+# the DG training run: 26 clouds per class of modelnet train split in two
+# halves of 130, so 2 class-balanced steps of 64 per epoch; 100 test clouds
+# per dataset, 2 eval batches each
+TRAIN_PER_CLASS = 26
+TEST_PER_CLASS = 10
+YAML = os.path.join(HERE, "tools", "cfgs", "cfgs_local", "DG_unified_loss.yaml")
 
 
 def fail(msg: str) -> None:
@@ -149,6 +175,68 @@ def compare(name, got, want, require_exact_idx=False):
     return max_err, share
 
 
+def bwd_bound(idx, u, v):
+    """(bound_ms, bound_by, bytes, flops) of one backward call: idx, u and
+    the seven (B,S,F) inputs read once, du and dv written once, against
+    about 8 f32 operations per edge and channel."""
+    Bq, S, k = idx.shape
+    N, F = u.shape[1], u.shape[2]
+    nbytes = idx.numel() * 4 + 2 * u.numel() * 4 + 8 * Bq * S * F * 4
+    flops = 8.0 * Bq * S * k * F
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def bwd_inputs(q, kv, u, v, k, gen, integer=False):
+    """The backward's inputs from one forward kernel launch on (q, kv, u, v)
+    and random cotangents; ``integer`` makes them half-integers, so every
+    sum is exact and kernel and plain version must agree bit for bit."""
+    amax, amin, _, _, idx = edgeconv.edgeconv_reduce(q, kv, u, v, k)
+    if integer:
+        cot = [torch.randint(-4, 5, amax.shape, generator=gen, device=amax.device).float() / 2
+               for _ in range(4)]
+    else:
+        cot = [torch.randn(amax.shape, generator=gen, device=amax.device) for _ in range(4)]
+    return (idx, u, v, amax, amin, *cot)
+
+
+def compare_bwd(name, args, exact=False):
+    """Backward kernel against the plain backward on the same inputs; two
+    launches must give bit-identical results. Returns the max |diff|.
+
+    dU and dV are sums of edge cotangents of both signs (a key of many
+    neighbour lists collects hundreds), summed in another order by the
+    plain version's atomic scatter, so the error is measured relative to
+    max(sum of the terms' magnitudes, 1), the scale of f32 summation error;
+    the error relative to max(|plain|, 1) is printed beside it."""
+    got = edgeconv.edgeconv_reduce_bwd(*args)
+    again = edgeconv.edgeconv_reduce_bwd(*args)
+    want = edgeconv.edgeconv_reduce_bwd_plain(*args)
+    da_abs = edgeconv.edge_cotangents(*args).abs()
+    scales = (edgeconv.scatter_keys(da_abs, args[0], args[1].shape[1]), da_abs.sum(2))
+    del da_abs
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        fail(f"{name}: two backward launches on the same inputs differ")
+    max_err, parts = 0.0, []
+    for label, g, w, scale in zip(("du", "dv"), got, want, scales):
+        if not torch.isfinite(g).all():
+            fail(f"{name}: {label} has non-finite values")
+        d = (g - w).abs()
+        rel = (d / torch.clamp(scale, min=1.0)).max().item()
+        rel_plain = (d / torch.clamp(w.abs(), min=1.0)).max().item()
+        max_err = max(max_err, d.max().item())
+        parts.append(f"{label} {d.max().item():.3e} (rel {rel:.3e} of the terms, "
+                     f"{rel_plain:.3e} of |plain|)")
+        if rel > REL_TOL:
+            fail(f"{name}: {label} differs by {rel:.3e} of its terms' magnitude (> {REL_TOL})")
+        if exact and not torch.equal(g, w):
+            fail(f"{name}: {label} differs on an exact-tie input: first-hit routing disagrees")
+    print(f"  {name}: {', '.join(parts)}; two launches bit-identical"
+          + ("; exact ties routed identically" if exact else ""), flush=True)
+    return max_err
+
+
 def randomize_bn(model, gen):
     """Random BN running stats, scales of random sign (about a third
     negative, so the EdgeConv epilogue takes its amin branch) and biases."""
@@ -184,17 +272,15 @@ def synthetic_clouds(rng, m):
     return (3.0 * pts + 1.0).astype(np.float32), labels.astype(np.int64)
 
 
-def profile_forward(model, batch, fwd_ms: float, iters: int = 3) -> None:
-    """Device time per forward by kernel (torch.profiler), and the share of
-    the CUDA-event forward time the device was busy."""
+def profile_device(fn, what: str, wall_ms: float, iters: int = 3) -> None:
+    """Device time per call of ``fn`` by kernel (torch.profiler), and the
+    share of the CUDA-event time ``wall_ms`` the device was busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from sug_tpu_torch.models.net_mda import ensemble_logits
-
-    with torch.no_grad(), profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
-            ensemble_logits(model, batch)
+            fn()
         torch.cuda.synchronize()
     rows = sorted(
         ((e.self_device_time_total / 1e3 / iters, e.count / iters, e.key)
@@ -203,16 +289,116 @@ def profile_forward(model, batch, fwd_ms: float, iters: int = 3) -> None:
     )
     busy = sum(r[0] for r in rows)
     if busy == 0.0:
-        print("profile: the profiler recorded no device time (not measured)", flush=True)
+        print(f"profile {what}: the profiler recorded no device time (not measured)", flush=True)
         return
-    print(f"profile: device busy {busy:.3f} ms per forward, {busy / fwd_ms:.1%} of the "
-          f"{fwd_ms:.3f} ms forward; {sum(r[1] for r in rows):.0f} kernels per forward; "
-          "top kernels (ms per forward, launches per forward):", flush=True)
+    print(f"profile {what}: device busy {busy:.3f} ms per call, {busy / wall_ms:.1%} of the "
+          f"{wall_ms:.3f} ms call; {sum(r[1] for r in rows):.0f} kernels per call; "
+          "top kernels (ms per call, launches per call):", flush=True)
     for ms, n, key in rows[:12]:
-        print(f"  {ms:9.4f} ms  x{n:<4g} {key[:110]}", flush=True)
+        print(f"  {ms:9.4f} ms  x{n:<5g} {key[:110]}", flush=True)
+
+
+def write_pointda_tree(root, rng):
+    """Synthetic train and test dumps of modelnet, shapenet and scannet."""
+    from sug_tpu_torch.data.datasets import DATASET_LIST, make_synthetic_pointda
+
+    for i, name in enumerate(DATASET_LIST):
+        os.makedirs(os.path.join(root, name))
+        for j, (split, per_class) in enumerate((("train", TRAIN_PER_CLASS if name == "modelnet" else 2),
+                                                ("test", TEST_PER_CLASS))):
+            pts, labels = make_synthetic_pointda(num_per_class=per_class, num_points=N_POINTS,
+                                                 seed=int(rng.integers(1 << 30)))
+            np.save(os.path.join(root, name, f"{split}_pts.npy"), pts)
+            np.save(os.path.join(root, name, f"{split}_label.npy"), labels)
+
+
+def reset_counts():
+    edgeconv.edgeconv_reduce.launches = 0
+    edgeconv.edgeconv_reduce_bwd.launches = 0
+
+
+def counts():
+    torch.cuda.synchronize()
+    return edgeconv.edgeconv_reduce.launches, edgeconv.edgeconv_reduce_bwd.launches
+
+
+def train_run(train_main, root, epochs, extra=()):
+    """One run of the training front door on the card, counting launches;
+    fails unless every train step took 10 forward and 10 backward launches
+    and every eval batch 5 forward ones, and every loss is finite."""
+    argv = ["--source", "modelnet", "--cfg", YAML, "--batch_size", str(B),
+            "--num_points", str(N_POINTS), "--device", "cuda", "--ckpt_save_interval", "1",
+            "--fix_random_seed", *extra, "--set", "Model", "DGCNN", "DATA_ROOT", root,
+            "OPTIMIZATION.NUM_EPOCHES", str(epochs)]
+    reset_counts()
+    t0 = time.perf_counter()
+    result = train_main(argv)
+    fwd, bwd = counts()
+    seconds = time.perf_counter() - t0
+    steps = sum(h["steps"] for h in result["history"])
+    evals = sum(h["eval_batches"] for h in result["history"])
+    print(f"train_dg_single_gpu epochs {[h['epoch'] for h in result['history']]}: {steps} steps, "
+          f"{evals} eval batches in {seconds:.1f} s; launches: forward {fwd} "
+          f"({fwd - 5 * evals} in training, {(fwd - 5 * evals) / max(steps, 1):g} per step), "
+          f"backward {bwd} ({bwd / max(steps, 1):g} per step)", flush=True)
+    for h in result["history"]:
+        print(f"  epoch {h['epoch']}: loss_cls {h['loss_cls']:.6f} loss_geo {h['loss_geo']:.6f} "
+              f"loss_sem {h['loss_sem']:.6f}, {h['ms_per_step']:.1f} ms per step incl. host",
+              flush=True)
+        if not all(math.isfinite(h[k]) for k in ("loss_cls", "loss_geo", "loss_sem")):
+            fail(f"training epoch {h['epoch']}: non-finite loss {h}")
+    if steps == 0 or fwd != 10 * steps + 5 * evals or bwd != 10 * steps:
+        fail(f"training: {fwd} forward and {bwd} backward launches for {steps} steps and "
+             f"{evals} eval batches (expected {10 * steps + 5 * evals} and {10 * steps})")
+    return result, fwd, bwd
+
+
+def card_against_cpu(cfg, rng):
+    """One ``_loss(train=True)`` at B=8 with the same weights, batch, FPS
+    starts and no dropout, on the card and on the CPU plain path."""
+    from sug_tpu_torch.data.datasets import PointCloudDataset, make_synthetic_pointda
+    from sug_tpu_torch.engine.dg_trainer import DGTrainer
+
+    pts, labels = make_synthetic_pointda(num_per_class=2, num_points=N_POINTS, seed=7)
+    ds = PointCloudDataset("modelnet", pts, labels, num_points=N_POINTS, model="DGCNN")
+    fps = [torch.from_numpy(rng.integers(0, N_POINTS, CARD_B)) for _ in range(2)]
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        tr = DGTrainer(cfg, model_name="DGCNN", augment=False, device=dev, seed=0)
+        tr.model.c1.dropout_rate = tr.model.c2.dropout_rate = 0.0
+        batch = [torch.from_numpy(a).to(dev) for a in
+                 (ds.pts[:CARD_B], ds.labels[:CARD_B].astype(np.int64),
+                  ds.pts[-CARD_B:], ds.labels[-CARD_B:].astype(np.int64))]
+        out = {}
+        for mmd_on in (True, False):
+            total, metrics = tr._loss(*batch, *(f.to(dev) for f in fps), mmd_on=mmd_on, train=True)
+            grads = tr.grads(total) if not mmd_on else None
+            out[mmd_on] = ({k: v.detach().item() for k, v in metrics.items()},
+                           None if grads is None else
+                           {n: (torch.zeros_like(p) if g is None else g).double().cpu()
+                            for (n, p), g in zip(tr.params, grads)})
+        runs[dev] = out
+    worst_loss = 0.0
+    for mmd_on in (True, False):
+        for k, want in runs["cpu"][mmd_on][0].items():
+            got = runs["cuda"][mmd_on][0][k]
+            rel = abs(got - want) / max(abs(want), 1e-12)
+            worst_loss = max(worst_loss, rel)
+            if rel > MAX_LOSS_REL:
+                fail(f"card vs CPU: {k} (mmd {mmd_on}) {got} vs {want}, {rel:.3e} relative")
+    g_card, g_cpu = runs["cuda"][False][1], runs["cpu"][False][1]
+    floor = 1e-2 * max(g.norm().item() for g in g_cpu.values())
+    rel = {n: (g_card[n] - g).norm().item() / max(g.norm().item(), floor) for n, g in g_cpu.items()}
+    name = max(rel, key=rel.get)
+    print(f"DG _loss(train=True) at B={CARD_B}, card vs CPU: losses within {worst_loss:.3e} "
+          f"relative (total {runs['cuda'][True][0]['loss_total']:.6f}); gradients within "
+          f"{rel[name]:.3e} relative L2 (worst {name})", flush=True)
+    if rel[name] > MAX_GRAD_REL_L2:
+        fail(f"card vs CPU: gradient of {name} differs by {rel[name]:.3e} relative L2")
 
 
 def main() -> None:
+    global edgeconv
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
     try:
@@ -221,12 +407,14 @@ def main() -> None:
         fail(f"the sug_tpu_torch package is not beside this script: {e}")
     if os.path.dirname(os.path.dirname(os.path.abspath(sug_tpu_torch.__file__))) != HERE:
         fail(f"imported sug_tpu_torch from {sug_tpu_torch.__file__}, not from {HERE}")
-    from sug_tpu_torch import infer
-    from sug_tpu_torch.engine.checkpoint import save_checkpoint
+    from sug_tpu_torch import infer, train_dg_single_gpu
     from sug_tpu_torch.data.datasets import PointCloudDataset
+    from sug_tpu_torch.engine.checkpoint import save_checkpoint
+    from sug_tpu_torch.engine.dg_trainer import DGTrainer
     from sug_tpu_torch.models.net_mda import NetMDA, ensemble_logits
     from sug_tpu_torch.ops import cuda_build, edgeconv
     from sug_tpu_torch.ops.geometry import farthest_point_sample
+    from sug_tpu_torch.utils.config import parser_config
 
     dev = torch.device("cuda")
     t_start = time.perf_counter()
@@ -241,12 +429,17 @@ def main() -> None:
     print(f"torch: {kind}, torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
 
-    # 2. the build
-    built = cuda_build.build("edgeconv_fwd")
-    print(f"build edgeconv_fwd: {built.seconds:.2f} s -> {built.path}", flush=True)
-    for line in built.log.splitlines():
-        if any(w in line for w in ("registers", "bytes smem", "spill", "Function properties")):
-            print(f"  ptxas: {line.strip()}", flush=True)
+    # 2. the build: one nvcc per source, all started together
+    sources = ("edgeconv_fwd", "edgeconv_bwd")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(sources)) as pool:
+        builds = list(pool.map(cuda_build.build, sources))
+    print(f"build: {time.perf_counter() - t0:.2f} s for {len(sources)} sources", flush=True)
+    for name, built in zip(sources, builds):
+        print(f"build {name}: {built.seconds:.2f} s -> {built.path}", flush=True)
+        for line in built.log.splitlines():
+            if any(w in line for w in ("registers", "bytes smem", "spill", "Function properties")):
+                print(f"  ptxas: {line.strip()}", flush=True)
 
     # 3. kernels against plain versions
     print("kernel vs plain (tolerance: sets agree on >= "
@@ -287,7 +480,32 @@ def main() -> None:
         fail("farthest_point_sample breaks argmax ties differently on the card")
     print("  fps argmax ties: the card matches the CPU", flush=True)
 
-    # 4. the slice through the user's entry point
+    print(f"backward kernel vs plain (tolerance: {REL_TOL} of max(sum of the terms' "
+          "magnitudes, 1); exact ties bit for bit; two launches bit-identical):", flush=True)
+    bwd_max_abs_err = 0.0
+    for shape, n in [(s, N_POINTS) for s in SHAPES] + [(s, RAGGED_N) for s in RAGGED]:
+        args = bwd_inputs(*shape_inputs(shape, gen, dev, n), gen)
+        bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd(shape[0], args))
+    # exact ties in a: lattice points with duplicates and integer values, so
+    # tied neighbours give equal a and every sum is exact
+    for name, q, kv, k in (
+        ("tie self k=20", lat, lat, 20),
+        ("tie cross k=64", lat[:, 128:192].contiguous(), lat, 64),
+        ("tie ragged self N=1000 k=20", lat_r, lat_r, 20),
+        ("tie ragged cross S=61 N=1000 k=64", lat_r[:, 128:189].contiguous(), lat_r, 64),
+    ):
+        u = torch.randint(-3, 4, (B, kv.shape[1], 64), generator=gen, device=dev).float()
+        v = torch.randint(-3, 4, (B, q.shape[1], 64), generator=gen, device=dev).float()
+        args = bwd_inputs(q, kv, u, v, k, gen, integer=True)
+        bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd(name, args, exact=True))
+    # N=2000 > the kernel's 1536-key tile: two tiles; F=40 leaves idle lanes
+    big = torch.randn((8, 2000, 3), generator=gen, device=dev)
+    args = bwd_inputs(big, big, torch.randn((8, 2000, 40), generator=gen, device=dev),
+                      torch.randn((8, 2000, 40), generator=gen, device=dev), 20, gen)
+    bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd("two key tiles N=2000 F=40", args))
+    del args, big
+
+    # 4a. the inference slice through its entry point
     torch.manual_seed(0)
     model = NetMDA("DGCNN")
     randomize_bn(model, torch.Generator().manual_seed(1))
@@ -315,21 +533,21 @@ def main() -> None:
 
         common = ["--ckpt", ckpt, "--model", "DGCNN", "--dg", "--batch_size", str(B),
                   "--num_points", str(N_POINTS), "--device", "cuda"]
-        launches = 0
+        fwd_launches = 0
         for label, extra, m in (
             ("pts", ["--pts", pts_file], len(raw)),
             ("dataset", ["--dataset", "scannet", "--split", "test", "--data_root", root], 100),
         ):
-            edgeconv.edgeconv_reduce.launches = 0
+            reset_counts()
             result = infer.main(common + extra)
-            torch.cuda.synchronize()
-            n = edgeconv.edgeconv_reduce.launches
+            n, n_bwd = counts()
             want_n = len(SHAPES) * math.ceil(m / B)
             print(f"infer --{label}: edgeconv kernel launches {n} "
-                  f"({n / math.ceil(m / B):.0f} per batch of {B})", flush=True)
-            if n != want_n:
-                fail(f"infer --{label}: {n} kernel launches, expected {want_n}")
-            launches += n
+                  f"({n / math.ceil(m / B):.0f} per batch of {B}), backward {n_bwd}", flush=True)
+            if n != want_n or n_bwd != 0:
+                fail(f"infer --{label}: {n} forward and {n_bwd} backward kernel launches, "
+                     f"expected {want_n} and 0")
+            fwd_launches += n
             if label == "pts":
                 preds = result["preds"]
                 if preds.shape != (len(raw),) or preds.min() < 0 or preds.max() > 9:
@@ -356,12 +574,33 @@ def main() -> None:
     if max(disagree, disagree_infer) > MAX_ARGMAX_DISAGREE:
         fail(f"argmax disagrees on {max(disagree, disagree_infer)} of 16 clouds")
 
+    # 4b. the training slice through its entry point, then --resume
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = os.path.join(tmp, "data", "PointDA_data")
+        write_pointda_tree(root, rng)
+        _, n_fwd, n_bwd = train_run(train_dg_single_gpu.main, root, epochs=1)
+        fwd_launches += n_fwd
+        bwd_launches = n_bwd
+        ckpts = sorted(glob.glob(os.path.join(root, "output", "**", "*_checkpoint_epoch_1.pt"),
+                                 recursive=True))
+        if len(ckpts) != 1:
+            fail(f"training wrote {ckpts} as its epoch-1 checkpoint")
+        resumed, _, _ = train_run(train_dg_single_gpu.main, root, epochs=2,
+                                  extra=("--resume", ckpts[0]))
+        if [h["epoch"] for h in resumed["history"]] != [1]:
+            fail(f"--resume ran epochs {[h['epoch'] for h in resumed['history']]}, expected [1]")
+    print(f"--resume from {os.path.basename(ckpts[0])} continued at epoch 1", flush=True)
+
+    # 4c. one DG loss on the card against the CPU plain path
+    _, cfg = parser_config(["--cfg", YAML, "--set", "Model", "DGCNN"])
+    card_against_cpu(cfg, rng)
+
     # 5. times
     print(f"times (CUDA events), card: {smi}", flush=True)
     entry = {"name": "edgeconv_fwd", "route": "cuda",
              "source": "sug_tpu_torch/csrc/edgeconv_fwd.cu",
              "replaces": "sug_tpu/ops/edgeconv_pallas.py:498",
-             "launches": launches, "max_abs_err": max_abs_err, "ms": 0.0, "plain_ms": 0.0,
+             "launches": fwd_launches, "max_abs_err": max_abs_err, "ms": 0.0, "plain_ms": 0.0,
              "bound_ms": 0.0, "library_ms": None, "shapes": []}
     t_ops = 0.0
     for shape in SHAPES:
@@ -382,6 +621,31 @@ def main() -> None:
     # the entry is one forward's five calls; say what bounds most of them
     entry["bound_by"] = "operations" if t_ops >= entry["bound_ms"] / 2 else "bytes"
 
+    # the backward at the forward's five shapes, fed by one forward launch;
+    # no single PyTorch call replays, routes first hits and scatters
+    bwd_entry = {"name": "edgeconv_bwd", "route": "cuda",
+                 "source": "sug_tpu_torch/csrc/edgeconv_bwd.cu",
+                 "replaces": "sug_tpu/ops/edgeconv_pallas.py:589",
+                 "launches": bwd_launches, "max_abs_err": bwd_max_abs_err, "ms": 0.0,
+                 "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None,
+                 "shapes": []}
+    for shape in SHAPES:
+        args = bwd_inputs(*shape_inputs(shape, gen, dev), gen)
+        ms = timed_ms(lambda: edgeconv.edgeconv_reduce_bwd(*args), iters=10)
+        plain_ms = timed_ms(lambda: edgeconv.edgeconv_reduce_bwd_plain(*args), iters=3)
+        b_ms, b_by, nbytes, flops = bwd_bound(*args[:3])
+        print(f"  backward {shape[0]} (B={B}, S={args[0].shape[1]}, N={N_POINTS}, F={shape[3]}, "
+              f"k={shape[4]}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+        if b_by != "bytes":
+            fail(f"backward {shape[0]}: expected a bytes bound, got {b_by}")
+        bwd_entry["shapes"].append({"name": shape[0], "ms": ms, "plain_ms": plain_ms,
+                                    "bound_ms": b_ms, "bound_by": b_by})
+        bwd_entry["ms"] += ms
+        bwd_entry["plain_ms"] += plain_ms
+        bwd_entry["bound_ms"] += b_ms
+    del args
+
     batch = torch.from_numpy(calib.pts).to(dev)
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
@@ -390,10 +654,28 @@ def main() -> None:
     print(f"forward (NetMDA DGCNN eval, ensemble logits), B={B}, N={N_POINTS}: {fwd_ms:.3f} ms "
           f"per batch, {B / fwd_ms * 1e3:.1f} clouds/s; peak device memory "
           f"{peak / 2**20:.1f} MiB", flush=True)
-    profile_forward(model, batch, fwd_ms)
+    with torch.no_grad():
+        profile_device(lambda: ensemble_logits(model, batch), "inference forward", fwd_ms)
+    del model
+
+    # the DG train step at bench.py's flagship shape: B=64 source + 64
+    # target clouds of 1024 points, full MSA/SDA loss, augmentation on
+    trainer = DGTrainer(cfg, model_name="DGCNN", device=dev, seed=0)
+    clouds, labels = synthetic_clouds(rng, 2 * B)
+    clouds = PointCloudDataset("modelnet", clouds, labels, num_points=N_POINTS).pts
+    step_args = [torch.from_numpy(a).to(dev) for a in
+                 (clouds[:B], labels[:B], clouds[B:], labels[B:])]
+    lrs = (1e-4, 1e-4, 1e-4)
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = timed_ms(lambda: trainer.train_step(*step_args, *lrs), iters=5)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"DG train step (DGCNN, B={B}+{B}, N={N_POINTS}, geo+sem soft-MMD, augmentation): "
+          f"{step_ms:.3f} ms per step, {2 * B / step_ms * 1e3:.1f} clouds/s; peak device "
+          f"memory {peak / 2**20:.1f} MiB", flush=True)
+    profile_device(lambda: trainer.train_step(*step_args, *lrs), "DG train step", step_ms)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": [entry, bwd_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -1,0 +1,190 @@
+"""The SUG DG trainer: counterpart of ``sug_tpu/engine/dg_trainer.py`` for
+the sequential (source, then target) forward.
+
+One step: augmentation, the source and the target forward of ``NetMDA``
+(the BN running stats flow from one to the next through the module
+buffers), every loss, one backward, and the fused three-group update.
+
+Loss semantics, as in the JAX package:
+- cls: 0.5·crit(head 1) + 0.5·crit(head 2) on the source batch;
+- adv: −ADV_WEIGHT · discrepancy(target heads), added after the average;
+- TARGET_LOSS > 0: the target split's own cross terms (its own labels
+  unless ``TARGET_LOSS_USES_SOURCE_LABELS``), else SRC_LOSS_WEIGHT · cls;
+- geo MMD on the attended 4096-d node features with chamfer SDA weights;
+- sem MMD on the two heads' 256-d mid features with KL SDA weights;
+- PURE_CLS_EPOCH gating through ``mmd_on``.
+
+Config keys of paths not ported yet (GRL, ``PRECISION: bf16``, per-replica
+BN, the stacked forward, the KPConv regularizer, the CL and hard MMDs)
+raise ``NotImplementedError`` naming ROADMAP.md.
+"""
+
+from __future__ import annotations
+
+import functools
+import os
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from sug_tpu_torch import resolve_device
+from sug_tpu_torch.engine.optim import ThreeGroupOptimizer
+from sug_tpu_torch.losses.classification import cross_entropy, discrepancy, focal_loss
+from sug_tpu_torch.losses.mmd import PORTED_MMD, mmd_cal
+from sug_tpu_torch.models.net_mda import NetMDA, ensemble_logits
+from sug_tpu_torch.ops.augment import augment_batch
+
+
+def _not_ported(what: str):
+    return NotImplementedError(f"{what} is not ported yet; it is queued in ROADMAP.md")
+
+
+def make_criterion(opt_cfg, source_dataset=None, num_class: int = 10, device="cpu"):
+    """The classification loss from the OPTIMIZATION config: FocalLoss,
+    ClassWeighting (focal with gamma 0 and class weights) or cross entropy.
+    The class weights are placed on ``device`` once."""
+    name = opt_cfg.get("CLS_LOSS", "CrossEntropyLoss")
+    if name == "FocalLoss":
+        alpha = None
+        if opt_cfg.get("CLS_WEIGHT", None) and source_dataset is not None:
+            alpha = torch.as_tensor(source_dataset.cls_wights(weighting=opt_cfg["CLS_WEIGHT"]),
+                                    device=device)
+        return functools.partial(focal_loss, gamma=float(opt_cfg["FOCAL_GAMMA"]), alpha=alpha,
+                                 num_classes=num_class)
+    if name == "ClassWeighting":
+        if not opt_cfg.get("CLS_WEIGHT", None):
+            raise RuntimeError("When setting ClassWeighting, CLS_WEIGHT should be provided")
+        alpha = source_dataset.cls_wights(weighting=opt_cfg["CLS_WEIGHT"], q_=opt_cfg.get("DLSA_Q", None))
+        return functools.partial(focal_loss, gamma=0.0, alpha=torch.as_tensor(alpha, device=device),
+                                 num_classes=num_class)
+    return cross_entropy
+
+
+def check_supported(cfg, model_name: str) -> None:
+    """Raise for config keys whose paths the port does not have yet."""
+    methods = cfg["METHODS"]
+    if model_name != "DGCNN":
+        raise _not_ported(f"Model {model_name!r} (the port trains DGCNN; the other backbones)")
+    if methods.get("GRL", False):
+        raise _not_ported("METHODS.GRL (the gradient-reversal layer)")
+    if str(cfg.get("PRECISION", "f32")).lower() not in ("f32", "fp32", "float32"):
+        raise _not_ported(f"PRECISION {cfg.get('PRECISION')!r} (the values_bf16 kernel mode)")
+    model_cfg = cfg.get("MODEL_CFG", None) or {}
+    if str(model_cfg.get("BN_SEMANTICS", "global")).lower() != "global":
+        raise _not_ported("MODEL_CFG.BN_SEMANTICS per_replica (grouped BN)")
+    if os.environ.get("SUG_STACKED_FORWARD") == "1":
+        raise _not_ported("SUG_STACKED_FORWARD=1 (the stacked both-domains forward)")
+    for key in ("GEO_MMD", "SEM_MMD"):
+        if key in methods and methods[key][0]["NAME"] not in PORTED_MMD:
+            raise _not_ported(f"METHODS.{key} NAME {methods[key][0]['NAME']!r}")
+
+
+class DGTrainer:
+    """Owns the ``NetMDA`` model on ``device``, the fused optimizer and the
+    trainer's generator, which draws the augmentation, the FPS starts and
+    the dropout masks. ``seed`` seeds the initial weights (drawn on the CPU,
+    so the same on every device) and the generator."""
+
+    def __init__(self, cfg, model_name: str = "DGCNN", num_class: int = 10, criterion=None,
+                 augment: bool = True, device="cuda", seed: int = 0):
+        check_supported(cfg, model_name)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.num_class = num_class
+        self.criterion = criterion or cross_entropy
+        self.augment = augment
+        model = NetMDA(model_name, num_class, generator=torch.Generator().manual_seed(seed))
+        self.model = model.to(self.device)
+        self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.params = list(self.model.named_parameters())
+        wd = float(cfg["OPTIMIZATION"]["WEIGHT_DECAY"])
+        self.optimizer = ThreeGroupOptimizer(self.params, wd)
+
+    def _forward_both(self, data_s, data_t, fps_s, fps_t, train: bool):
+        """Source then target forward. ``train=False`` is deterministic: BN
+        running stats (left unchanged), no dropout, and FPS from the given
+        starts (index 0 when None)."""
+        self.model.train(train)
+        out_s = self.model(data_s, "source", fps_s, self.generator)
+        out_t = self.model(data_t, "target", fps_t, self.generator)
+        return out_s, out_t
+
+    def _loss(self, data_s, label_s, data_t, label_t, fps_s=None, fps_t=None,
+              mmd_on: bool = True, train: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(total loss, metrics) of one batch pair; in train mode the BN
+        running stats are updated in place."""
+        methods = self.cfg["METHODS"]
+        out_s, out_t = self._forward_both(data_s, data_t, fps_s, fps_t, train)
+        crit = self.criterion
+        loss_s = 0.5 * crit(out_s["logits1"], label_s) + 0.5 * crit(out_s["logits2"], label_s)
+
+        adv_weight = float(methods.get("ADV_WEIGHT", 0.0))
+        loss_adv = torch.zeros((), device=data_s.device)
+        if adv_weight > 0:
+            loss_adv = -adv_weight * discrepancy(out_t["logits1"], out_t["logits2"])
+            loss_s = loss_s + loss_adv
+
+        if float(methods.get("TARGET_LOSS", 0.0)) > 0:
+            t_labels = label_s if methods.get("TARGET_LOSS_USES_SOURCE_LABELS", False) else label_t
+            loss_t = 0.5 * crit(out_t["logits1"], t_labels) + 0.5 * crit(out_t["logits2"], t_labels)
+            loss = 0.5 * loss_s + 0.5 * loss_t
+        else:
+            loss = float(methods.get("SRC_LOSS_WEIGHT", 1.0)) * loss_s
+        loss_cls = float(methods.get("CLS_WEIGHT", 1.0)) * loss
+        metrics = {"loss_cls": loss_cls, "loss_adv": loss_adv}
+
+        total = loss_cls
+        if mmd_on:
+            mmd_weight = float(methods["MMD_WEIGHT"])
+            geo_cfg = dict(methods["GEO_MMD"][0])
+            geo_align = mmd_cal(label_s, out_s["node_attn"], label_t, out_t["node_attn"], geo_cfg,
+                                data_s=data_s, data_t=data_t, num_class=self.num_class)
+            loss_geo = mmd_weight * float(geo_cfg.get("GEO_SCALE", 1.0)) * geo_align
+            total = total + loss_geo
+            metrics["loss_geo"] = loss_geo
+
+            sem_cfg = dict(methods["SEM_MMD"][0])
+            sem_scale = float(sem_cfg.get("SEM_SCALE", 1.0))
+            if sem_scale > 0:
+                l1 = sem_scale * mmd_cal(label_s, out_s["sem1"], label_t, out_t["sem1"], sem_cfg,
+                                         data_s=out_s["logits1"], data_t=out_t["logits1"],
+                                         num_class=self.num_class)
+                l2 = sem_scale * mmd_cal(label_s, out_s["sem2"], label_t, out_t["sem2"], sem_cfg,
+                                         data_s=out_s["logits2"], data_t=out_t["logits2"],
+                                         num_class=self.num_class)
+                loss_sem = mmd_weight * (0.5 * l1 + 0.5 * l2)
+                total = total + loss_sem
+                metrics["loss_sem"] = loss_sem
+        metrics["loss_total"] = total
+        return total, metrics
+
+    def grads(self, total: torch.Tensor):
+        """Gradients of ``total`` for every parameter, in the optimizer's order."""
+        return torch.autograd.grad(total, [p for _, p in self.params], allow_unused=True)
+
+    def train_step(self, data_s, label_s, data_t, label_t, lr_g: float, lr_c: float,
+                   lr_dis: float, mmd_on: bool = True,
+                   fps_s: Optional[torch.Tensor] = None,
+                   fps_t: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+        """One training step on (B, N, 3) clouds and (B,) labels (numpy or
+        tensors). Augmentation (when on) and, where not given, the FPS starts
+        (uniform in [0, N)) are drawn from the trainer's generator. Returns the
+        detached metrics, still on the device."""
+        dev = self.device
+        data_s, data_t = (torch.as_tensor(d, dtype=torch.float32, device=dev) for d in (data_s, data_t))
+        label_s, label_t = (torch.as_tensor(lb, dtype=torch.long, device=dev) for lb in (label_s, label_t))
+        if self.augment:
+            data_s = augment_batch(data_s, self.generator)
+            data_t = augment_batch(data_t, self.generator)
+        B, N = data_s.shape[:2]
+        if fps_s is None:
+            fps_s = torch.randint(0, N, (B,), generator=self.generator, device=dev)
+        if fps_t is None:
+            fps_t = torch.randint(0, N, (B,), generator=self.generator, device=dev)
+        total, metrics = self._loss(data_s, label_s, data_t, label_t, fps_s, fps_t, mmd_on, train=True)
+        self.optimizer.update(self.grads(total), lr_g, lr_c, lr_dis)
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def eval_logits(self, data: torch.Tensor) -> torch.Tensor:
+        """The twin-head ensemble logits, in eval mode."""
+        return ensemble_logits(self.model.eval(), data)

@@ -1,8 +1,10 @@
 """Evaluation: counterpart of ``sug_tpu/engine/evaluation.py``.
 
-Overall, per-class and mean-class accuracy and the average loss over a
-loader. The last batch is zero-padded to the first batch's size and a
-``valid`` mask drops the pad rows from every sum, as in the JAX package.
+Overall, per-class and mean-class accuracy and the average loss (the
+configured criterion's, per sample) over a loader. The last batch is
+zero-padded to the first batch's size and a ``valid`` mask drops the pad
+rows from every sum, as in the JAX package. ``eval_worker`` adds the
+best-accuracy tracking of the training loop.
 """
 
 from __future__ import annotations
@@ -19,17 +21,21 @@ from sug_tpu_torch.losses.classification import cross_entropy
 
 class Evaluator:
     """``apply_fn(data) -> logits`` must already ensemble heads if
-    applicable; it runs under ``torch.no_grad()`` on ``device``."""
+    applicable; it runs under ``torch.no_grad()`` on ``device``.
+    ``criterion(logits, labels)`` is a mean of per-sample terms (cross
+    entropy by default); the eval loss applies it to each sample."""
 
     def __init__(self, apply_fn: Callable[[torch.Tensor], torch.Tensor],
-                 num_class: int = 10, device="cuda"):
+                 num_class: int = 10, device="cuda", criterion=None):
         self.apply_fn = apply_fn
         self.num_class = num_class
         self.device = resolve_device(device)
+        self.criterion = criterion or cross_entropy
 
     def _step(self, data, label, valid) -> Dict[str, torch.Tensor]:
         logits = self.apply_fn(data)
-        loss_sum = torch.sum(cross_entropy(logits, label, reduction="none") * valid)
+        per_sample = torch.func.vmap(lambda lg, lb: self.criterion(lg[None], lb[None]))(logits, label)
+        loss_sum = torch.sum(per_sample * valid)
         correct = (torch.argmax(logits, dim=-1) == label).float() * valid
         onehot = Fn.one_hot(label, self.num_class).float() * valid[:, None]
         return {
@@ -71,3 +77,22 @@ class Evaluator:
             "class_acc": cls_acc,
             "mean_class_acc": float(cls_acc[totals["cls_count"] > 0].mean()),
         }
+
+
+def eval_worker(eval_dict: Dict, logger) -> Dict:
+    """Evaluate one loader, update the best-accuracy tracker, and log the
+    per-class accuracy when ``cls_eval``."""
+    result = eval_dict["evaluator"].run(eval_dict["dataloader"])
+    dataset, epoch = eval_dict["dataset"], eval_dict["epoch"]
+    best_acc, best_epoch = eval_dict["best_target_acc"], eval_dict["best_target_acc_epoch"]
+    logger.info(f"Current eval on: {dataset} {eval_dict['dataset_name']}")
+    acc = result["overall_acc"]
+    if acc > best_acc:
+        best_acc, best_epoch = acc, epoch
+    logger.info(f"On dataset {dataset} :{epoch} [overall_acc: {acc} Best Tar Acc: "
+                f"{best_acc} on Source Train Epoch {best_epoch}]")
+    if eval_dict.get("cls_eval", False):
+        logger.info(f"Cls-wise eval: {result['class_acc']}")
+        logger.info(f"compared eval: {acc} and avg: {result['mean_class_acc']}")
+    return {"dataset": dataset, "epoch": epoch, "best_target_acc": best_acc,
+            "best_target_acc_epoch": best_epoch, "cur_target_acc": acc}

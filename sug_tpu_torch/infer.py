@@ -91,7 +91,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
         )
         ev = Evaluator(lambda d: ensemble_logits(model, d), device=device)
         t0 = time.perf_counter()
-        result = ev.run(BatchIterator(ds, args.batch_size))
+        result = ev.run(BatchIterator(ds, args.batch_size, shuffle=False, drop_last=False))
         dt = time.perf_counter() - t0
         print(
             f"{args.dataset}/{args.split}: overall_acc={result['overall_acc']:.4f} "

@@ -6,12 +6,16 @@ centred group features -> kNN re-query at the offset nodes -> max-pool of the
 residual features -> 3-NN inverse-distance upsample, concatenated with the
 input features. The gather-then-project order of the JAX default is kept.
 The max-pool re-query goes through ``edgeconv_reduce`` with ``v = 0``,
-taking ``amax``: the CUDA kernel on the card, its plain version on the CPU.
+taking ``amax``: the CUDA kernels on the card, their plain versions on the
+CPU. In train mode the ``residual`` ConvBN takes batch statistics, and its
+gradient arrives through the backward kernel's ``du`` from the ``amax``
+cotangent. ``fps_start`` (B,) is FPS's first index per cloud (index 0 when
+None); the trainers draw it at random.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -38,15 +42,15 @@ class SelfAdaptiveNodeModule(nn.Module):
 
     def __init__(self, in_features: int = 64):
         super().__init__()
-        # no bias: the name 'pred_offset' is what the training slice's
-        # optimizer masking keys on, as in the JAX package
+        # no bias: the name 'pred_offset' is what the optimizer's group
+        # masks key on, as in the JAX package
         self.pred_offset = nn.Linear(in_features, 3, bias=False)
         self.residual = ConvBN(in_features, FC_DIM)
 
     def forward(
-        self, feats: torch.Tensor, xyz: torch.Tensor
+        self, feats: torch.Tensor, xyz: torch.Tensor, fps_start: Optional[torch.Tensor] = None
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        fps_idx = farthest_point_sample(xyz, NUM_NODE)
+        fps_idx = farthest_point_sample(xyz, NUM_NODE, fps_start)
         fpoint_loc = index_points(xyz, fps_idx)  # (B, S, 3)
         group_idx = query_ball_point(RADIUS, NSAMPLE, xyz, fpoint_loc)
 

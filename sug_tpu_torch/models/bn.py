@@ -1,19 +1,45 @@
 """BatchNorm with flax semantics: counterpart of ``sug_tpu/models/bn.py``.
 
-Channels-last (normalises the last axis of any rank), eps 1e-5, and the
-eval-mode arithmetic of ``flax.linen.BatchNorm``:
-``(x - mean) * (rsqrt(var + eps) * scale) + bias``. Only eval mode is
-ported: train mode, whose running variance is fed the *biased* batch
-variance, and the grouped and stacked two-group modes come with the training
-slice (ROADMAP.md).
+Channels-last (normalises the last axis of any rank), eps 1e-5, momentum
+0.9, and the arithmetic of ``flax.linen.BatchNorm``, written out:
+
+- train mode: the batch mean over every axis but the last, and the biased
+  variance ``max(mean(x²) − mean², 0)`` (flax's ``use_fast_variance``);
+  the running stats become ``0.9·running + 0.1·batch``, the variance
+  biased, without gradient;
+- both modes: ``(x − mean) * (rsqrt(var + eps) * scale) + bias``.
+
+``torch.nn.functional.batch_norm`` is not used: its Welford variance rounds
+differently, and its running variance takes the unbiased estimate. The
+grouped per-replica and the stacked two-group modes come with later slices
+(ROADMAP.md).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 from torch import nn
 
 EPS = 1e-5
+MOMENTUM = 0.9
+
+
+def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Flax's train-mode (mean, biased variance) over every axis but the last."""
+    axes = tuple(range(x.dim() - 1))
+    mean = torch.mean(x, dim=axes)
+    var = torch.clamp(torch.mean(x * x, dim=axes) - mean * mean, min=0.0)
+    return mean, var
+
+
+@torch.no_grad()
+def update_running(running_mean: torch.Tensor, running_var: torch.Tensor,
+                   mean: torch.Tensor, var: torch.Tensor) -> None:
+    """``running = momentum·running + (1 − momentum)·batch``, in place."""
+    running_mean.copy_(MOMENTUM * running_mean + (1.0 - MOMENTUM) * mean)
+    running_var.copy_(MOMENTUM * running_var + (1.0 - MOMENTUM) * var)
 
 
 class BatchNorm(nn.Module):
@@ -30,9 +56,9 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "BatchNorm train mode comes with the training slice (ROADMAP.md); "
-                "call .eval() for inference"
-            )
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x - self.running_mean) * mul + self.bias
+            mean, var = batch_stats(x)
+            update_running(self.running_mean, self.running_var, mean, var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return (x - mean) * mul + self.bias

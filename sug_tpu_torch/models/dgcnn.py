@@ -7,19 +7,22 @@ centre halves W1 = W[:C], W2 = W[C:], so that the edge activation is
 EdgeConv kernel returns max/min/sum/sumsq of ``a`` over the k=20 neighbours;
 since BN's per-channel affine and leaky_relu are monotone, the block output
 ``max_j lrelu(BN(a_j))`` is ``lrelu(BN(amax))`` where the BN slope is >= 0
-and ``lrelu(BN(amin))`` where it is negative.
+and ``lrelu(BN(amin))`` where it is negative. In train mode the BN batch
+statistics come from the kernel's sums over the ``M = B·N·k`` edges, so the
+gradients reach every edge through the kernel's ds1/ds2 cotangents, and the
+max/min branch through damax/damin.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as Fn
 from torch import nn
 
 from sug_tpu_torch.models.adapt_node import SelfAdaptiveNodeModule
-from sug_tpu_torch.models.bn import EPS, BatchNorm
+from sug_tpu_torch.models.bn import EPS, BatchNorm, update_running
 from sug_tpu_torch.ops.edgeconv import fused_edgeconv_reduce
 
 K_NEIGHBORS = 20
@@ -27,8 +30,7 @@ K_NEIGHBORS = 20
 
 class EdgeConvBlock(nn.Module):
     """One EdgeConv block, the counterpart of ``_EdgeConvBlock``: kNN-20
-    graph -> Dense + BN + leaky_relu(0.01) -> max over the neighbours.
-    Eval mode only; the BN train path comes with the training slice."""
+    graph -> Dense + BN + leaky_relu(0.01) -> max over the neighbours."""
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
@@ -39,20 +41,22 @@ class EdgeConvBlock(nn.Module):
         self.register_buffer("bn_var", torch.ones(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "EdgeConvBlock train mode comes with the training slice (ROADMAP.md); "
-                "call .eval() for inference"
-            )
-        C = x.shape[-1]
+        B, N, C = x.shape
         w = self.conv_dense.weight  # (F, 2C): torch Linear layout
         w1, w2 = w[:, :C], w[:, C:]
         u = torch.matmul(x, w1.t())
         v = torch.matmul(x, (w2 - w1).t())
-        amax, amin, _, _, _ = fused_edgeconv_reduce(x, u, v, K_NEIGHBORS)
+        amax, amin, s1, s2, _ = fused_edgeconv_reduce(x, u, v, K_NEIGHBORS)
 
-        inv = self.bn_scale * torch.rsqrt(self.bn_var + EPS)  # signed slopes
-        off = self.bn_bias - self.bn_mean * inv
+        if self.training:
+            m = B * N * K_NEIGHBORS  # every edge, not every point
+            mean = torch.sum(s1, dim=(0, 1)) / m
+            var = torch.clamp(torch.sum(s2, dim=(0, 1)) / m - mean * mean, min=0.0)
+            update_running(self.bn_mean, self.bn_var, mean, var)
+        else:
+            mean, var = self.bn_mean, self.bn_var
+        inv = self.bn_scale * torch.rsqrt(var + EPS)  # signed slopes
+        off = self.bn_bias - mean * inv
         sel = torch.where(inv >= 0, amax, amin)
         return Fn.leaky_relu(sel * inv + off, negative_slope=0.01)
 
@@ -72,10 +76,12 @@ class DGCNNGenerator(nn.Module):
         self.conv5 = nn.Linear(512, 512, bias=False)
         self.bn5 = BatchNorm(512)
 
-    def forward(self, pc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    def forward(
+        self, pc: torch.Tensor, fps_start: Optional[torch.Tensor] = None
+    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         x1 = self.block1(pc)
         x2 = self.block2(x1)
-        x_up, node_fea, node_off = self.sa_node(x2, pc)
+        x_up, node_fea, node_off = self.sa_node(x2, pc, fps_start)
         x2 = self.reproject(x_up)
         x3 = self.block3(x2)
         x4 = self.block4(x3)

@@ -8,6 +8,8 @@ Submodule names follow the JAX tree, with flax's auto-names renamed
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as Fn
 from torch import nn
@@ -15,17 +17,19 @@ from torch import nn
 from sug_tpu_torch.models.bn import BatchNorm
 
 
-def flax_init_(module: nn.Module) -> None:
+def flax_init_(module: nn.Module, generator: Optional[torch.Generator] = None) -> None:
     """Initialise every ``nn.Linear`` in ``module`` as flax's ``nn.Dense``
     is: kernel ``lecun_normal`` (a normal of variance 1/fan_in truncated at
     two standard deviations), bias zeros. Torch's default (uniform, variance
     1/(3 fan_in)) shrinks activations layer by layer, and a random DGCNN
-    then gives nearly the same logits for every cloud."""
+    then gives nearly the same logits for every cloud. ``generator`` (a CPU
+    generator) draws the kernels; None uses torch's global one."""
     for m in module.modules():
         if isinstance(m, nn.Linear):
             # flax divides by the truncated normal's own stddev, 0.8796...
             std = m.in_features**-0.5 / 0.87962566103423978
-            nn.init.trunc_normal_(m.weight, std=std, a=-2.0 * std, b=2.0 * std)
+            nn.init.trunc_normal_(m.weight, std=std, a=-2.0 * std, b=2.0 * std,
+                                  generator=generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
 

@@ -1,6 +1,6 @@
 """NetMDA, the twin-head DG model: counterpart of
 ``sug_tpu/models/net_mda.py`` for ``model_name="DGCNN"``, sequential
-forward only.
+forward only, in eval and train mode.
 
 The stacked both-domains forward, the gradient-reversal layer and the other
 backbones come with later slices (ROADMAP.md, "Modules to port").
@@ -28,9 +28,14 @@ class NetMDA(nn.Module):
     (B, 256); global_feat (B, 1024); node_flat (B, 64*64), flattened
     node-major; node_offset; and node_attn (domain 'source' or 'target') or
     node_attn and node_attn_t (domain 'both').
+
+    ``fps_start`` (B,) starts the SA-node's FPS (index 0 when None);
+    ``generator`` draws the heads' dropout masks in train mode. The
+    constructor's ``generator`` (CPU) draws the initial Dense kernels.
     """
 
-    def __init__(self, model_name: str = "DGCNN", num_class: int = 10):
+    def __init__(self, model_name: str = "DGCNN", num_class: int = 10,
+                 generator: Optional[torch.Generator] = None):
         super().__init__()
         if model_name != "DGCNN":
             raise NotImplementedError(
@@ -43,15 +48,23 @@ class NetMDA(nn.Module):
         self.c2 = ClassifierHead(num_class)
         self.attention_s = CALayer()
         self.attention_t = CALayer()
-        flax_init_(self)
+        flax_init_(self, generator)
 
-    def forward(self, pc: torch.Tensor, domain: Optional[str] = None) -> Dict[str, torch.Tensor]:
-        if domain not in DOMAINS:
-            raise ValueError(
-                f"domain must be one of {DOMAINS}, got {domain!r} (the stacked "
-                "forward comes with the training slice)"
+    def forward(
+        self,
+        pc: torch.Tensor,
+        domain: Optional[str] = None,
+        fps_start: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Dict[str, torch.Tensor]:
+        if domain == "stacked":
+            raise NotImplementedError(
+                "NetMDA domain 'stacked' (the stacked both-domains forward) is not "
+                "ported yet; it is queued in ROADMAP.md"
             )
-        feat, node_fea, node_off = self.g(pc)
+        if domain not in DOMAINS:
+            raise ValueError(f"domain must be one of {DOMAINS}, got {domain!r}")
+        feat, node_fea, node_off = self.g(pc, fps_start)
         node_flat = node_fea.reshape(feat.shape[0], -1)
 
         out: Dict[str, torch.Tensor] = {"node_flat": node_flat, "node_offset": node_off}
@@ -60,8 +73,8 @@ class NetMDA(nn.Module):
         if domain in ("target", "both"):
             out["node_attn_t" if domain == "both" else "node_attn"] = self.attention_t(node_flat)
 
-        logits1, sem1 = self.c1(feat)
-        logits2, sem2 = self.c2(feat)
+        logits1, sem1 = self.c1(feat, generator)
+        logits2, sem2 = self.c2(feat, generator)
         out.update(logits1=logits1, logits2=logits2, sem1=sem1, sem2=sem2, global_feat=feat)
         return out
 

@@ -8,8 +8,16 @@ sum of squares of ``a_j`` over j, plus idx (B, S, k) int32. It is the
 counterpart of the TPU kernel behind ``fused_edgeconv_reduce`` and
 ``fused_cross_edgeconv_reduce`` (``sug_tpu/ops/edgeconv_pallas.py``).
 
-On a CPU tensor the wrapper runs the plain PyTorch version; on a CUDA tensor
-it launches the hand-written kernel in ``csrc/edgeconv_fwd.cu`` or raises.
+``edgeconv_reduce_bwd`` is its backward, the counterpart of ``_bwd_pallas``:
+it replays ``a_j`` from idx, routes the max/min cotangents to the first j
+(in idx order) whose ``a_j`` equals amax/amin, and returns dU (scattered over
+keys) and dV (summed per query). ``EdgeConvReduce`` joins the two in one
+``torch.autograd.Function``, as ``_fused_cross`` does with its custom VJP;
+``fused_edgeconv_reduce`` and ``fused_cross_edgeconv_reduce`` call it.
+
+On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor
+it launches its hand-written kernel (``csrc/edgeconv_fwd.cu``,
+``csrc/edgeconv_bwd.cu``) or raises.
 """
 
 from __future__ import annotations
@@ -63,20 +71,22 @@ def _check(q, kv, u, v, k: int) -> None:
         raise ValueError(f"edgeconv_reduce: need 1 <= k <= N, got k={k}, N={N}")
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_build.load("edgeconv_fwd")
-    if lib.edgeconv_fwd.argtypes is None:
+def _library(name: str, error_string: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
+    lib = cuda_build.load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
         # every pointer and the stream as c_void_p: an undeclared pointer
         # argument would be passed as a 32-bit int and cut
-        lib.edgeconv_fwd.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.edgeconv_fwd.restype = ctypes.c_int
-        lib.edgeconv_error_string.argtypes = [ctypes.c_int]
-        lib.edgeconv_error_string.restype = ctypes.c_char_p
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err_fn = getattr(lib, error_string)
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
     return lib
 
 
 def _launch(q, kv, u, v, k: int) -> Outputs:
-    lib = _library()
+    lib = _library("edgeconv_fwd", "edgeconv_error_string", 9, 6)
     B, S, C = q.shape
     N, F = kv.shape[1], u.shape[-1]
     amax, amin, s1, s2 = (torch.empty((B, S, F), dtype=torch.float32, device=q.device)
@@ -119,11 +129,126 @@ def edgeconv_reduce(q, kv, u, v, k: int) -> Outputs:
 edgeconv_reduce.launches = 0
 
 
+def edge_cotangents(idx, u, v, amax, amin, damax, damin, ds1, ds2) -> torch.Tensor:
+    """The per-edge cotangents ``da`` (B, S, k, F) of the backward: the
+    replayed ``a``, the max/min cotangents on the first j (in idx order)
+    whose ``a`` hits amax/amin, and the sum terms."""
+    a = index_points(u, idx) + v[:, :, None, :]  # the forward's single f32 add
+    hit_max = a == amax[:, :, None, :]
+    hit_min = a == amin[:, :, None, :]
+    sel_max = hit_max & (torch.cumsum(hit_max, dim=2) == 1)
+    sel_min = hit_min & (torch.cumsum(hit_min, dim=2) == 1)
+    return (damax[:, :, None, :] * sel_max + damin[:, :, None, :] * sel_min
+            + ds1[:, :, None, :] + 2.0 * a * ds2[:, :, None, :])
+
+
+def scatter_keys(da: torch.Tensor, idx: torch.Tensor, n_keys: int) -> torch.Tensor:
+    """Sum (B, S, k, F) edge values into their keys: (B, n_keys, F)."""
+    B, S, k, F = da.shape
+    out = torch.zeros((B, n_keys, F), dtype=da.dtype, device=da.device)
+    return out.scatter_add_(1, idx.reshape(B, S * k, 1).long().expand(-1, -1, F),
+                            da.reshape(B, S * k, F))
+
+
+def edgeconv_reduce_bwd_plain(idx, u, v, amax, amin, damax, damin, ds1, ds2):
+    """The plain PyTorch backward: the counterpart of ``_bwd_pallas``.
+    Materialises the (B, S, k, F) edge cotangents."""
+    da = edge_cotangents(idx, u, v, amax, amin, damax, damin, ds1, ds2)
+    return scatter_keys(da, idx, u.shape[1]), torch.sum(da, dim=2)
+
+
+def _check_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2) -> None:
+    if idx.dtype != torch.int32 or idx.dim() != 3 or not idx.is_contiguous():
+        raise ValueError(f"edgeconv_reduce_bwd: idx must be contiguous (B,S,k) int32, got "
+                         f"{idx.dtype} {tuple(idx.shape)}")
+    B, S, k = idx.shape
+    if u.dim() != 3 or u.shape[0] != B or not 1 <= k <= u.shape[1]:
+        raise ValueError(f"edgeconv_reduce_bwd: u must be (B,N,F) with k <= N, got "
+                         f"{tuple(u.shape)} for idx {tuple(idx.shape)}")
+    F = u.shape[-1]
+    names = ("u", "v", "amax", "amin", "damax", "damin", "ds1", "ds2")
+    for name, t in zip(names, (u, v, amax, amin, damax, damin, ds1, ds2)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"edgeconv_reduce_bwd: {name} must be float32, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"edgeconv_reduce_bwd: {name} must be contiguous")
+        if t.device != idx.device:
+            raise ValueError(f"edgeconv_reduce_bwd: {name} is on {t.device}, idx on {idx.device}")
+        if name != "u" and t.shape != (B, S, F):
+            raise ValueError(f"edgeconv_reduce_bwd: {name} must be (B,S,F) = {(B, S, F)}, "
+                             f"got {tuple(t.shape)}")
+
+
+def _launch_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2):
+    lib = _library("edgeconv_bwd", "edgeconv_bwd_error_string", 11, 5)
+    B, S, k = idx.shape
+    N, F = u.shape[1], u.shape[2]
+    du = torch.empty_like(u)  # the kernel writes every element
+    dv = torch.empty_like(v)
+    with torch.cuda.device(idx.device):
+        stream = torch.cuda.current_stream(idx.device).cuda_stream
+        err = lib.edgeconv_bwd(
+            idx.data_ptr(), u.data_ptr(), v.data_ptr(), amax.data_ptr(), amin.data_ptr(),
+            damax.data_ptr(), damin.data_ptr(), ds1.data_ptr(), ds2.data_ptr(),
+            du.data_ptr(), dv.data_ptr(), B, S, N, F, k, stream,
+        )
+    if err != 0:
+        msg = lib.edgeconv_bwd_error_string(err).decode()
+        raise RuntimeError(f"edgeconv_bwd launch failed: {msg} (B={B}, S={S}, N={N}, F={F}, k={k})")
+    edgeconv_reduce_bwd.launches += 1
+    return du, dv
+
+
+def edgeconv_reduce_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2):
+    """Backward of ``edgeconv_reduce`` with respect to ``u`` and ``v``: idx
+    (B,S,k) int32, u (B,N,F), and v, amax, amin and the four output
+    cotangents (B,S,F), all f32 contiguous; returns du (B,N,F) and dv
+    (B,S,F).
+
+    CPU tensors go to the plain version, CUDA tensors to the kernel; a build
+    or launch failure raises. ``edgeconv_reduce_bwd.launches`` counts kernel
+    launches.
+    """
+    args = (idx, u, v, amax, amin, damax, damin, ds1, ds2)
+    _check_bwd(*args)
+    if idx.device.type == "cpu":
+        return edgeconv_reduce_bwd_plain(*args)
+    if idx.device.type != "cuda":
+        raise ValueError(f"edgeconv_reduce_bwd: no path for device {idx.device}")
+    return _launch_bwd(*args)
+
+
+edgeconv_reduce_bwd.launches = 0
+
+
+class EdgeConvReduce(torch.autograd.Function):
+    """``edgeconv_reduce`` with its backward: gradients reach ``u`` and ``v``;
+    ``q`` and ``kv`` only select neighbours and get none, and idx is not
+    differentiable (``_fused_bwd``, ``edgeconv_pallas.py:689-696``)."""
+
+    @staticmethod
+    def forward(ctx, q, kv, u, v, k: int):
+        amax, amin, s1, s2, idx = edgeconv_reduce(q, kv, u, v, k)
+        ctx.save_for_backward(idx, u, v, amax, amin)
+        ctx.mark_non_differentiable(idx)
+        return amax, amin, s1, s2, idx
+
+    @staticmethod
+    def backward(ctx, damax, damin, ds1, ds2, _didx):
+        # autograd passes zeros for the outputs the loss does not use
+        idx, u, v, amax, amin = ctx.saved_tensors
+        du, dv = edgeconv_reduce_bwd(
+            idx, u, v, amax, amin,
+            *(g.contiguous() for g in (damax, damin, ds1, ds2)),
+        )
+        return None, None, du, dv, None
+
+
 def fused_edgeconv_reduce(x, u, v, k: int) -> Outputs:
     """Self-kNN EdgeConv case: ``x`` (B,N,C) is both query and key set."""
-    return edgeconv_reduce(x, x, u, v, k)
+    return EdgeConvReduce.apply(x, x, u, v, k)
 
 
 def fused_cross_edgeconv_reduce(q_pts, kv_pts, u, v, k: int) -> Outputs:
     """Cross-query case: S queries against N keys (the SA-node re-query)."""
-    return edgeconv_reduce(q_pts, kv_pts, u, v, k)
+    return EdgeConvReduce.apply(q_pts, kv_pts, u, v, k)

@@ -48,15 +48,20 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out.reshape(*idx.shape, C)
 
 
-def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+def farthest_point_sample(
+    xyz: torch.Tensor, npoint: int, start_idx: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Farthest point sampling ``(B, N, 3) -> (B, npoint)`` int64.
 
-    A plain loop, like the JAX package's below N=4096, starting at index 0 of
-    each cloud. ``torch.argmax`` returns the first maximal index, as
-    ``jnp.argmax`` does.
+    A plain loop, like the JAX package's below N=4096, starting at
+    ``start_idx`` (B,) of each cloud, or at index 0 when it is None.
+    ``torch.argmax`` returns the first maximal index, as ``jnp.argmax`` does.
     """
     B, N, _ = xyz.shape
-    farthest = torch.zeros(B, dtype=torch.long, device=xyz.device)
+    if start_idx is None:
+        farthest = torch.zeros(B, dtype=torch.long, device=xyz.device)
+    else:
+        farthest = start_idx.to(device=xyz.device, dtype=torch.long)
     dists = torch.full((B, N), 1e10, dtype=torch.float32, device=xyz.device)
     centroids = torch.empty((B, npoint), dtype=torch.long, device=xyz.device)
     for i in range(npoint):
@@ -106,3 +111,13 @@ def three_nn_interpolate(
     weight = weight / torch.sum(weight, dim=-1, keepdim=True)  # (B, N, k)
     neighbor_feats = index_points(feats_coarse, idx)  # (B, N, k, D)
     return torch.sum(neighbor_feats * weight[..., None], dim=2)
+
+
+def chamfer_distance(pc1: torch.Tensor, pc2: torch.Tensor, per_sample: bool = True) -> torch.Tensor:
+    """Bidirectional chamfer distance, ``(B, N, 3), (B, M, 3)`` -> (B,)
+    ``mean_n min_m d + mean_m min_n d`` of squared distances, or its mean
+    over the batch. The plain (B, N, M) version, as the JAX package runs it
+    up to 2048 points."""
+    sqrdists = square_distance(pc1, pc2)  # (B, N, M)
+    per = torch.mean(torch.amin(sqrdists, dim=2), dim=1) + torch.mean(torch.amin(sqrdists, dim=1), dim=1)
+    return per if per_sample else torch.mean(per)

@@ -9,7 +9,7 @@ import jax
 import numpy as np
 import torch
 
-from sug_tpu_torch.utils.jax_bridge import load_jax_variables
+from sug_tpu_torch.utils.jax_bridge import load_jax_variables, state_dict_from_jax
 
 
 def to_numpy_tree(tree):
@@ -51,3 +51,44 @@ def port_module(module: torch.nn.Module, variables) -> torch.nn.Module:
 
 def t(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+
+
+def jax_grads_by_name(param_grads):
+    """A JAX ``params`` gradient tree as the port's parameter names (Dense
+    kernels transposed to the torch layout), as numpy."""
+    return {k: v.numpy() for k, v in state_dict_from_jax({"params": to_numpy_tree(param_grads)}).items()}
+
+
+def jax_stats_by_name(batch_stats):
+    """A JAX ``batch_stats`` tree as the port's buffer names, as numpy."""
+    return {k: v.numpy() for k, v in state_dict_from_jax({"batch_stats": to_numpy_tree(batch_stats)}).items()}
+
+
+def assert_leaves_close(got, want, rtol=1e-4, atol_frac=1e-4):
+    """Every leaf of ``want`` (name -> array) against ``got``: ``rtol``
+    relative, and ``atol_frac`` of the leaf's largest |value| absolute, or of
+    1e-2 of the largest |value| of all leaves where that is larger.
+    Gradients and statistics are sums whose rounding scales with their
+    terms; a leaf whose true value is zero (a Dense bias before a train-mode
+    BN) holds only that rounding."""
+    assert set(got) == set(want), set(got) ^ set(want)
+    floor = 1e-2 * max(np.abs(w).max() for w in want.values())
+    for name, w in want.items():
+        g = np.asarray(got[name])
+        np.testing.assert_allclose(g, w, rtol=rtol, atol=atol_frac * max(np.abs(w).max(), floor),
+                                   err_msg=name)
+
+
+def assert_rel_l2(got, want, bound):
+    """Every leaf of ``want`` against ``got`` in relative L2 error,
+    ``|g - w| / max(|w|, 1e-2 of the largest leaf's |w|)``: a leaf whose
+    true value is zero (a bias before a train-mode BN) holds only rounding."""
+    assert set(got) == set(want), set(got) ^ set(want)
+    floor = 1e-2 * max(np.linalg.norm(w) for w in want.values())
+    worst = {}
+    for name, w in want.items():
+        g = np.asarray(got[name], dtype=np.float64)
+        worst[name] = np.linalg.norm(g - w) / max(np.linalg.norm(w), floor)
+    name = max(worst, key=worst.get)
+    print(f"largest relative L2 error: {worst[name]:.3e} ({name})")
+    assert worst[name] <= bound, (name, worst[name])

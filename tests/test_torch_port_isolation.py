@@ -20,7 +20,7 @@ import jax  # noqa: F401  (the port's tests import both frameworks)
 import pytest
 import torch
 
-from sug_tpu_torch import infer, resolve_device
+from sug_tpu_torch import infer, resolve_device, train_dg_single_gpu
 from sug_tpu_torch.engine.evaluation import Evaluator
 from sug_tpu_torch.ops import cuda_build
 
@@ -75,6 +75,8 @@ def test_cuda_without_card_raises(monkeypatch):
         Evaluator(lambda d: d)
     with pytest.raises(RuntimeError, match="is_available"):
         infer.main(["--ckpt", "absent.pt", "--dg", "--pts", "absent.npy"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        train_dg_single_gpu.main(["--source", "modelnet"])
 
 
 def test_tf32_is_off():

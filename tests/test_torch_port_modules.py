@@ -134,6 +134,8 @@ def test_net_mda_init_is_flax_lecun_normal():
 
 
 def test_train_mode_raises():
-    block = EdgeConvBlock(3, 8)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        block(torch.zeros(1, 32, 3))
+    """Train mode runs (tests/test_torch_port_train_modules.py); what it does
+    not have yet, the stacked both-domains forward, raises."""
+    model = NetMDA("DGCNN").train()
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        model(torch.zeros(2, 32, 3), domain="stacked")
