@@ -11,21 +11,30 @@ ends the run with a non-zero exit; the phases, in order:
 2. build: every CUDA source of the main paths, compiled from the checkout
    (one ``nvcc`` each, started together), with its seconds and the
    ``-Xptxas -v`` register and shared-memory lines;
-3. kernels against their plain PyTorch versions on the card, at the shapes
-   the DGCNN twin-head forward and backward give them at B=64, at ragged
-   sizes (N=1000, S=61), on exact-tie inputs, and (backward) at N=2000,
-   which takes two key tiles; two backward launches must agree bit for bit;
-4. the slices through their entry points, counting kernel launches:
-   ``sug_tpu_torch.infer`` (``--dg --batch_size 64``) on synthetic clouds
-   and a synthetic dataset, with seeded weights, and its logits of 16 clouds
+3. kernels against their plain PyTorch versions on the card: the EdgeConv
+   forward and backward at the shapes the DGCNN twin-head forward and
+   backward give them at B=64, at ragged sizes (N=1000, S=61), on exact-tie
+   inputs, and (backward) at N=2000, which takes two key tiles, two backward
+   launches agreeing bit for bit; the vector-attention forward at the five
+   levels of the PTran forward at B=64 (N=1024 and the ragged N=1000), at
+   D=128, and on integer lattices with duplicate points, where the
+   neighbour indices must match index for index;
+4. the slices through their entry points, each with every launch count set
+   to 0 just before it and read just after: ``sug_tpu_torch.infer``
+   (``--model DGCNN --dg --batch_size 64``) on synthetic clouds and a
+   synthetic dataset, with seeded weights, and its logits of 16 clouds
    against the CPU plain path; then ``sug_tpu_torch.train_dg_single_gpu``
    (``DG_unified_loss.yaml``, DGCNN, batch 64, 1024 points) for one epoch on
    a synthetic PointDA tree, and ``--resume`` from its checkpoint for a
    second; then one ``_loss(train=True)`` of the DG trainer at B=8 on the
-   card against the CPU plain path;
+   card against the CPU plain path; then ``infer --model PTran --dg
+   --batch_size 64`` (transformer width 512) on synthetic clouds and a
+   synthetic dataset, 5 vector-attention launches per batch, and its logits
+   of 16 clouds against the CPU plain path; and a backward through the
+   vector attention on the card, which must raise (no backward kernel yet);
 5. times, with CUDA events after warm-up: each kernel shape beside its bound
-   and its plain version, the inference forward per batch of 64, and the DG
-   train step at B=64+64 with its peak memory; each with a
+   and its plain version, the DGCNN and PTran inference forwards per batch
+   of 64, and the DG train step at B=64+64 with its peak memory; each with a
    ``torch.profiler`` breakdown of device time by kernel.
 
 The line before the last is a JSON object with every kernel's numbers; the
@@ -50,7 +59,9 @@ sys.path.insert(0, HERE)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-edgeconv = None  # sug_tpu_torch.ops.edgeconv, imported by main() once a card is found
+# sug_tpu_torch.ops.edgeconv and .vector_attention, imported by main() once a card is found
+edgeconv = None
+vector_attention = None
 
 B = 64  # the serving batch of infer.py
 N_POINTS = 1024
@@ -97,6 +108,30 @@ MAX_GRAD_REL_L2 = 1e-2
 TRAIN_PER_CLASS = 26
 TEST_PER_CLASS = 10
 YAML = os.path.join(HERE, "tools", "cfgs", "cfgs_local", "DG_unified_loss.yaml")
+# PTran (transformer width 512, k=16): the forward's five vector-attention
+# calls at N=1024, (name, N, k); --num_points 1000 gives the ragged levels
+D_MODEL = 512
+VA_SHAPES = [
+    ("level0", 1024, 16),
+    ("level1", 256, 16),
+    ("level2", 64, 16),
+    ("level3", 16, 16),
+    ("level4", 4, 4),
+]
+VA_RAGGED = [
+    ("ragged level0", 1000, 16),
+    ("ragged level1", 250, 16),
+    ("ragged level2", 62, 16),
+    ("ragged level3", 15, 15),
+    ("ragged level4", 3, 3),
+]
+# vector attention, kernel against plain version: neighbour sets as for
+# EdgeConv, and out, m, l on agreeing rows to 1e-5 relative to
+# max(|plain|, 1): each logit sums 512 products per layer through three
+# layers, in another order than cuBLAS (up to 9.6e-7 measured on an H100)
+VA_REL_TOL = 1e-5
+# the PTran serving run: 2 batches of 64 clouds for --pts, 100 dataset clouds
+PTRAN_CLOUDS = 2 * B
 
 
 def fail(msg: str) -> None:
@@ -237,6 +272,64 @@ def compare_bwd(name, args, exact=False):
     return max_err
 
 
+def va_inputs(n, gen, device, d=D_MODEL, xyz=None):
+    """Seeded inputs of one vector-attention call: clouds in the unit ball
+    (or ``xyz``), unit-normal q/key/val, weights scaled as flax's Dense
+    init and small biases."""
+    if xyz is None:
+        xyz = torch.randn((B, n, 3), generator=gen, device=device)
+        xyz = xyz / xyz.norm(dim=-1).amax(dim=1)[:, None, None]
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=device) * scale
+
+    return [xyz, rnd(B, n, d), rnd(B, n, d), rnd(B, n, d),
+            rnd(3, d, scale=3**-0.5), rnd(d, scale=0.1), rnd(d, d, scale=d**-0.5),
+            rnd(d, scale=0.1), rnd(d, d, scale=d**-0.5), rnd(d, scale=0.1),
+            rnd(d, d, scale=d**-0.5), rnd(d, scale=0.1)]
+
+
+def va_bound(args, k):
+    """(bound_ms, bound_by, bytes, flops) of one vector-attention call: the
+    inputs (xyz, q, key, val, weights) read once and out, m, l, idx written
+    once, against B·N·(2·N·C + k·(2·C·D + 6·D²)) f32 operations: the
+    distances, the C->D layer and the three D×D products per edge."""
+    xyz, q = args[0], args[1]
+    Bq, n, c = xyz.shape
+    d = q.shape[-1]
+    nbytes = sum(t.numel() * 4 for t in args) + 3 * Bq * n * d * 4 + Bq * n * k * 4
+    flops = float(Bq) * n * (2.0 * n * c + k * (2.0 * c * d + 6.0 * d * d))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def compare_va(name, got, want, require_exact_idx=False):
+    """Vector-attention kernel outputs against the plain version's; returns
+    the max |diff| of out, m and l on rows whose neighbour sets agree."""
+    g_idx, w_idx = got[3].long(), want[3].long()
+    same_set = (torch.sort(g_idx, -1).values == torch.sort(w_idx, -1).values).all(-1)
+    share = same_set.float().mean().item()
+    ordered = (g_idx == w_idx).all(-1).float().mean().item()
+    max_err, parts = 0.0, []
+    for label, g, w in zip(("out", "m", "l"), got[:3], want[:3]):
+        if not torch.isfinite(g).all():
+            fail(f"{name}: {label} has non-finite values")
+        d = (g - w).abs()[same_set]
+        rel = (d / torch.clamp(w.abs()[same_set], min=1.0)).max().item() if d.numel() else 0.0
+        err = d.max().item() if d.numel() else 0.0
+        max_err = max(max_err, err)
+        parts.append(f"{label} {err:.3e} (rel {rel:.3e})")
+        if rel > VA_REL_TOL:
+            fail(f"{name}: {label} differs by {rel:.3e} relative on agreeing rows (> {VA_REL_TOL})")
+    print(f"  {name}: sets agree on {share:.6f} of rows, order on {ordered:.6f}; "
+          f"max |diff| on agreeing rows: {', '.join(parts)}", flush=True)
+    if require_exact_idx and not torch.equal(g_idx, w_idx):
+        fail(f"{name}: neighbour indices differ on an exact-tie input")
+    if share < MIN_SET_AGREEMENT:
+        fail(f"{name}: neighbour sets agree on {share:.6f} of rows (< {MIN_SET_AGREEMENT})")
+    return max_err
+
+
 def randomize_bn(model, gen):
     """Random BN running stats, scales of random sign (about a third
     negative, so the EdgeConv epilogue takes its amin branch) and biases."""
@@ -315,11 +408,15 @@ def write_pointda_tree(root, rng):
 def reset_counts():
     edgeconv.edgeconv_reduce.launches = 0
     edgeconv.edgeconv_reduce_bwd.launches = 0
+    vector_attention.vector_attention_fwd.launches = 0
 
 
 def counts():
+    """Launches since ``reset_counts``: EdgeConv forward, EdgeConv backward,
+    vector-attention forward."""
     torch.cuda.synchronize()
-    return edgeconv.edgeconv_reduce.launches, edgeconv.edgeconv_reduce_bwd.launches
+    return (edgeconv.edgeconv_reduce.launches, edgeconv.edgeconv_reduce_bwd.launches,
+            vector_attention.vector_attention_fwd.launches)
 
 
 def train_run(train_main, root, epochs, extra=()):
@@ -333,7 +430,7 @@ def train_run(train_main, root, epochs, extra=()):
     reset_counts()
     t0 = time.perf_counter()
     result = train_main(argv)
-    fwd, bwd = counts()
+    fwd, bwd, n_va = counts()
     seconds = time.perf_counter() - t0
     steps = sum(h["steps"] for h in result["history"])
     evals = sum(h["eval_batches"] for h in result["history"])
@@ -347,9 +444,10 @@ def train_run(train_main, root, epochs, extra=()):
               flush=True)
         if not all(math.isfinite(h[k]) for k in ("loss_cls", "loss_geo", "loss_sem")):
             fail(f"training epoch {h['epoch']}: non-finite loss {h}")
-    if steps == 0 or fwd != 10 * steps + 5 * evals or bwd != 10 * steps:
-        fail(f"training: {fwd} forward and {bwd} backward launches for {steps} steps and "
-             f"{evals} eval batches (expected {10 * steps + 5 * evals} and {10 * steps})")
+    if steps == 0 or fwd != 10 * steps + 5 * evals or bwd != 10 * steps or n_va != 0:
+        fail(f"training: {fwd} forward, {bwd} backward and {n_va} vector-attention launches "
+             f"for {steps} steps and {evals} eval batches (expected "
+             f"{10 * steps + 5 * evals}, {10 * steps} and 0)")
     return result, fwd, bwd
 
 
@@ -397,8 +495,118 @@ def card_against_cpu(cfg, rng):
         fail(f"card vs CPU: gradient of {name} differs by {rel[name]:.3e} relative L2")
 
 
+def check_logits(what, card, cpu, preds):
+    """Logits of the same clouds on the card and on the CPU plain path, and
+    ``infer``'s predictions for them."""
+    diff = (card - cpu).abs()
+    disagree = int((card.argmax(-1) != cpu.argmax(-1)).sum())
+    disagree_infer = int((torch.from_numpy(preds[:len(cpu)]) != cpu.argmax(-1)).sum())
+    print(f"{what} logits card vs CPU ({len(cpu)} clouds, |logit| up to {cpu.abs().max():.3f}): "
+          f"max |diff| {diff.max():.3e}, median {diff.median():.3e}; argmax disagrees on "
+          f"{disagree} (infer's predictions on {disagree_infer}); classes predicted "
+          f"{len(np.unique(preds))}", flush=True)
+    if not torch.isfinite(card).all() or diff.max() > MAX_LOGIT_DIFF:
+        fail(f"{what}: logits differ by {diff.max():.3e} (> {MAX_LOGIT_DIFF})")
+    if max(disagree, disagree_infer) > MAX_ARGMAX_DISAGREE:
+        fail(f"{what}: argmax disagrees on {max(disagree, disagree_infer)} of {len(cpu)} clouds")
+
+
+def infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds, want_per_batch):
+    """``infer.main`` on ``--pts`` (``n_clouds`` clouds) and on a synthetic
+    ``--dataset`` (100 clouds), each with the launch counts set to 0 just
+    before and read just after; fails unless every batch of 64 took
+    ``want_per_batch`` (EdgeConv forward, backward, vector attention)
+    launches. Returns the summed counts, the raw clouds and their
+    predictions."""
+    raw, _ = synthetic_clouds(rng, n_clouds)
+    pts_file = os.path.join(tmp, f"{model_name}_clouds.npy")
+    np.save(pts_file, raw)
+    root = os.path.join(tmp, f"{model_name}_PointDA")
+    os.makedirs(os.path.join(root, "scannet"))
+    ds_pts, ds_labels = synthetic_clouds(rng, 100)
+    np.save(os.path.join(root, "scannet", "test_pts.npy"), ds_pts)
+    np.save(os.path.join(root, "scannet", "test_label.npy"), ds_labels)
+    common = ["--ckpt", ckpt, "--model", model_name, "--dg", "--batch_size", str(B),
+              "--num_points", str(N_POINTS), "--device", "cuda"]
+    total = np.zeros(3, dtype=np.int64)
+    for label, extra, m in (
+        ("pts", ["--pts", pts_file], n_clouds),
+        ("dataset", ["--dataset", "scannet", "--split", "test", "--data_root", root], 100),
+    ):
+        reset_counts()
+        result = infer.main(common + extra)
+        got = np.array(counts())
+        batches = math.ceil(m / B)
+        want = np.array(want_per_batch) * batches
+        print(f"infer --model {model_name} --{label}: {batches} batches; launches: edgeconv "
+              f"forward {got[0]}, backward {got[1]}, vector attention {got[2]}", flush=True)
+        if not np.array_equal(got, want):
+            fail(f"infer --model {model_name} --{label}: launches (edgeconv forward, backward, "
+                 f"vector attention) {got.tolist()}, expected {want.tolist()}")
+        total += got
+        if label == "pts":
+            preds = result["preds"]
+            if preds.shape != (n_clouds,) or preds.min() < 0 or preds.max() > 9:
+                fail(f"infer --pts: bad predictions {preds.shape} {preds[:8]}")
+        elif not 0.0 <= result["overall_acc"] <= 1.0 or not math.isfinite(result["avg_loss"]):
+            fail(f"infer --dataset: bad result {result}")
+    return total, raw, preds
+
+
+def serving_run(infer, model_name, seed, rng, dev, n_clouds, want_per_batch):
+    """A serving path through ``infer --model <model_name> --dg``: seeded
+    weights (random BN statistics and signed scales), head biases shifted by
+    minus their mean logits over 64 calibration clouds (random heads send
+    every cloud to one class), a checkpoint, ``infer_runs``, and the logits
+    of 16 clouds against the CPU plain path. Returns the summed launch
+    counts, the model on the card and the calibration batch."""
+    from sug_tpu_torch.data.datasets import PointCloudDataset
+    from sug_tpu_torch.engine.checkpoint import save_checkpoint
+    from sug_tpu_torch.models.net_mda import NetMDA, ensemble_logits
+
+    torch.manual_seed(seed)
+    model = NetMDA(model_name, num_points=N_POINTS)
+    randomize_bn(model, torch.Generator().manual_seed(seed + 1))
+    calib = PointCloudDataset("modelnet", synthetic_clouds(rng, B)[0], np.zeros(B),
+                              num_points=N_POINTS).pts
+    batch = torch.from_numpy(calib).to(dev)
+    model = model.eval().to(dev)
+    with torch.no_grad():
+        out = model(batch)
+        model.c1.mlp3.bias -= out["logits1"].mean(0)
+        model.c2.mlp3.bias -= out["logits2"].mean(0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        ckpt = save_checkpoint(os.path.join(tmp, f"{model_name}.pt"), model, epoch=0)
+        launches, raw, preds = infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds,
+                                          want_per_batch)
+        first = torch.from_numpy(
+            PointCloudDataset("modelnet", raw[:16], np.zeros(16), num_points=N_POINTS).pts)
+        with torch.no_grad():
+            card = ensemble_logits(infer.load_model(model_name, ckpt, dev, N_POINTS),
+                                   first.to(dev)).cpu()
+            cpu = ensemble_logits(infer.load_model(model_name, ckpt, torch.device("cpu"),
+                                                   N_POINTS), first)
+    check_logits(model_name, card, cpu, preds)
+    return launches, model, batch
+
+
+def va_backward_raises(gen, dev):
+    """A backward through ``fused_vector_attention`` on the card must raise:
+    the backward kernels are not ported, and nothing may fall back to the
+    plain backward there."""
+    args = va_inputs(32, gen, dev, d=128)
+    leaves = [a.requires_grad_(True) for a in args[1:]]
+    out = vector_attention.fused_vector_attention(args[0], *leaves, 4)
+    try:
+        out.sum().backward()
+    except NotImplementedError as e:
+        print(f"vector-attention backward on the card raises NotImplementedError: {e}", flush=True)
+        return
+    fail("a backward through fused_vector_attention on the card did not raise")
+
+
 def main() -> None:
-    global edgeconv
+    global edgeconv, vector_attention
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
     try:
@@ -409,10 +617,9 @@ def main() -> None:
         fail(f"imported sug_tpu_torch from {sug_tpu_torch.__file__}, not from {HERE}")
     from sug_tpu_torch import infer, train_dg_single_gpu
     from sug_tpu_torch.data.datasets import PointCloudDataset
-    from sug_tpu_torch.engine.checkpoint import save_checkpoint
     from sug_tpu_torch.engine.dg_trainer import DGTrainer
-    from sug_tpu_torch.models.net_mda import NetMDA, ensemble_logits
-    from sug_tpu_torch.ops import cuda_build, edgeconv
+    from sug_tpu_torch.models.net_mda import ensemble_logits
+    from sug_tpu_torch.ops import cuda_build, edgeconv, vector_attention
     from sug_tpu_torch.ops.geometry import farthest_point_sample
     from sug_tpu_torch.utils.config import parser_config
 
@@ -430,7 +637,7 @@ def main() -> None:
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
 
     # 2. the build: one nvcc per source, all started together
-    sources = ("edgeconv_fwd", "edgeconv_bwd")
+    sources = ("edgeconv_fwd", "edgeconv_bwd", "vecattn_fwd")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(cuda_build.build, sources))
@@ -505,74 +712,28 @@ def main() -> None:
     bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd("two key tiles N=2000 F=40", args))
     del args, big
 
-    # 4a. the inference slice through its entry point
-    torch.manual_seed(0)
-    model = NetMDA("DGCNN")
-    randomize_bn(model, torch.Generator().manual_seed(1))
+    print(f"vector-attention kernel vs plain (tolerance: sets agree on >= {MIN_SET_AGREEMENT}, "
+          f"out/m/l on agreeing rows to {VA_REL_TOL} rel of max(|plain|,1)):", flush=True)
+    va_max_abs_err = 0.0
+    cases = [(f"{name} N={n} k={k} D={D_MODEL}", va_inputs(n, gen, dev), k, False)
+             for name, n, k in VA_SHAPES + VA_RAGGED]
+    cases.append((f"D=128 N={N_POINTS} k=16", va_inputs(N_POINTS, gen, dev, d=128), 16, False))
+    # exact ties: the lattice above (duplicates at 0, 64, 65), every distance
+    # exact, so the indices must match index for index
+    for n, k in ((N_POINTS, 16), (RAGGED_N, 16), (15, 15)):
+        xyz = lat[:, :n].contiguous()
+        cases.append((f"tie N={n} k={k}", va_inputs(n, gen, dev, xyz=xyz), k, True))
+    for name, args, k, exact in cases:
+        got = vector_attention.vector_attention_fwd(*args, k)
+        want = vector_attention.vector_attention_fwd_plain(*args, k)
+        torch.cuda.synchronize()
+        va_max_abs_err = max(va_max_abs_err, compare_va(name, got, want, require_exact_idx=exact))
+    del cases, args, got, want
+
+    # 4a. the DGCNN serving slice through its entry point
     rng = np.random.default_rng(0)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        # random heads send every cloud to one class: shift each head's output
-        # bias by minus its mean logits over calibration clouds
-        calib = PointCloudDataset("modelnet", synthetic_clouds(rng, B)[0], np.zeros(B),
-                                  num_points=N_POINTS)
-        model = model.eval().to(dev)
-        with torch.no_grad():
-            out = model(torch.from_numpy(calib.pts).to(dev))
-            model.c1.mlp3.bias -= out["logits1"].mean(0)
-            model.c2.mlp3.bias -= out["logits2"].mean(0)
-        ckpt = save_checkpoint(os.path.join(tmp, "dgcnn.pt"), model, epoch=0)
-
-        raw, _ = synthetic_clouds(rng, 256)
-        pts_file = os.path.join(tmp, "clouds.npy")
-        np.save(pts_file, raw)
-        root = os.path.join(tmp, "PointDA")
-        os.makedirs(os.path.join(root, "scannet"))
-        ds_pts, ds_labels = synthetic_clouds(rng, 100)
-        np.save(os.path.join(root, "scannet", "test_pts.npy"), ds_pts)
-        np.save(os.path.join(root, "scannet", "test_label.npy"), ds_labels)
-
-        common = ["--ckpt", ckpt, "--model", "DGCNN", "--dg", "--batch_size", str(B),
-                  "--num_points", str(N_POINTS), "--device", "cuda"]
-        fwd_launches = 0
-        for label, extra, m in (
-            ("pts", ["--pts", pts_file], len(raw)),
-            ("dataset", ["--dataset", "scannet", "--split", "test", "--data_root", root], 100),
-        ):
-            reset_counts()
-            result = infer.main(common + extra)
-            n, n_bwd = counts()
-            want_n = len(SHAPES) * math.ceil(m / B)
-            print(f"infer --{label}: edgeconv kernel launches {n} "
-                  f"({n / math.ceil(m / B):.0f} per batch of {B}), backward {n_bwd}", flush=True)
-            if n != want_n or n_bwd != 0:
-                fail(f"infer --{label}: {n} forward and {n_bwd} backward kernel launches, "
-                     f"expected {want_n} and 0")
-            fwd_launches += n
-            if label == "pts":
-                preds = result["preds"]
-                if preds.shape != (len(raw),) or preds.min() < 0 or preds.max() > 9:
-                    fail(f"infer --pts: bad predictions {preds.shape} {preds[:8]}")
-            elif not 0.0 <= result["overall_acc"] <= 1.0 or not math.isfinite(result["avg_loss"]):
-                fail(f"infer --dataset: bad result {result}")
-
-        # the card against the CPU plain path on the first 16 clouds
-        first = PointCloudDataset("modelnet", raw[:16], np.zeros(16), num_points=N_POINTS).pts
-        with torch.no_grad():
-            card = ensemble_logits(infer.load_model("DGCNN", ckpt, dev),
-                                   torch.from_numpy(first).to(dev)).cpu()
-            cpu = ensemble_logits(infer.load_model("DGCNN", ckpt, torch.device("cpu")),
-                                  torch.from_numpy(first))
-    diff = (card - cpu).abs()
-    disagree = int((card.argmax(-1) != cpu.argmax(-1)).sum())
-    disagree_infer = int((torch.from_numpy(preds[:16]) != cpu.argmax(-1)).sum())
-    print(f"logits card vs CPU (16 clouds, |logit| up to {cpu.abs().max():.3f}): max |diff| "
-          f"{diff.max():.3e}, median {diff.median():.3e}; argmax disagrees on {disagree} "
-          f"(infer's predictions on {disagree_infer}); classes predicted "
-          f"{len(np.unique(preds))}", flush=True)
-    if not torch.isfinite(card).all() or diff.max() > MAX_LOGIT_DIFF:
-        fail(f"logits differ by {diff.max():.3e} (> {MAX_LOGIT_DIFF})")
-    if max(disagree, disagree_infer) > MAX_ARGMAX_DISAGREE:
-        fail(f"argmax disagrees on {max(disagree, disagree_infer)} of 16 clouds")
+    launches, model, batch = serving_run(infer, "DGCNN", 0, rng, dev, 256, (len(SHAPES), 0, 0))
+    fwd_launches = int(launches[0])
 
     # 4b. the training slice through its entry point, then --resume
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
@@ -594,6 +755,13 @@ def main() -> None:
     # 4c. one DG loss on the card against the CPU plain path
     _, cfg = parser_config(["--cfg", YAML, "--set", "Model", "DGCNN"])
     card_against_cpu(cfg, rng)
+
+    # 4d. the PTran serving slice through its entry point; 4e. no backward
+    # on the card until its kernels are ported
+    launches, ptran_model, ptran_batch = serving_run(infer, "PTran", 2, rng, dev, PTRAN_CLOUDS,
+                                                     (0, 0, len(VA_SHAPES)))
+    va_launches = int(launches[2])
+    va_backward_raises(gen, dev)
 
     # 5. times
     print(f"times (CUDA events), card: {smi}", flush=True)
@@ -646,7 +814,6 @@ def main() -> None:
         bwd_entry["bound_ms"] += b_ms
     del args
 
-    batch = torch.from_numpy(calib.pts).to(dev)
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         fwd_ms = timed_ms(lambda: ensemble_logits(model, batch), iters=10)
@@ -657,6 +824,46 @@ def main() -> None:
     with torch.no_grad():
         profile_device(lambda: ensemble_logits(model, batch), "inference forward", fwd_ms)
     del model
+
+    # the vector-attention kernel at the PTran forward's five shapes; no
+    # single PyTorch call does kNN + per-edge MLPs + per-channel softmax
+    va_entry = {"name": "vecattn_fwd", "route": "cuda",
+                "source": "sug_tpu_torch/csrc/vecattn_fwd.cu",
+                "replaces": "sug_tpu/ops/vector_attention_pallas.py:523",
+                "launches": va_launches, "max_abs_err": va_max_abs_err, "ms": 0.0,
+                "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "operations", "library_ms": None,
+                "shapes": []}
+    for name, n, k in VA_SHAPES:
+        args = va_inputs(n, gen, dev)
+        ms = timed_ms(lambda: vector_attention.vector_attention_fwd(*args, k), iters=5)
+        plain_ms = timed_ms(lambda: vector_attention.vector_attention_fwd_plain(*args, k), iters=3)
+        b_ms, b_by, nbytes, flops = va_bound(args, k)
+        print(f"  vector attention {name} (B={B}, N={n}, D={D_MODEL}, k={k}): kernel {ms:.4f} ms "
+              f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
+              f"{b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+        if b_by != "operations":
+            va_entry["bound_by"] = "bytes"
+        va_entry["shapes"].append({"name": name, "ms": ms, "plain_ms": plain_ms,
+                                   "bound_ms": b_ms, "bound_by": b_by})
+        va_entry["ms"] += ms
+        va_entry["plain_ms"] += plain_ms
+        va_entry["bound_ms"] += b_ms
+    del args
+
+    # the PTran inference forward (transformer width 512) per batch of 64
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        pt_ms = timed_ms(lambda: ensemble_logits(ptran_model, ptran_batch), iters=5)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"forward (NetMDA PTran eval, ensemble logits), B={B}, N={N_POINTS}: {pt_ms:.3f} ms "
+          f"per batch, {B / pt_ms * 1e3:.1f} clouds/s; peak device memory {peak / 2**20:.1f} MiB "
+          f"({(peak - held) / 2**20:.1f} MiB above what the script held before)", flush=True)
+    with torch.no_grad():
+        profile_device(lambda: ensemble_logits(ptran_model, ptran_batch),
+                       "PTran inference forward", pt_ms, iters=2)
+    del ptran_model, ptran_batch
 
     # the DG train step at bench.py's flagship shape: B=64 source + 64
     # target clouds of 1024 points, full MSA/SDA loss, augmentation on
@@ -675,7 +882,7 @@ def main() -> None:
     profile_device(lambda: trainer.train_step(*step_args, *lrs), "DG train step", step_ms)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": [entry, bwd_entry]}))
+    print(json.dumps({"kernels": [entry, bwd_entry, va_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -1,0 +1,359 @@
+// Vector-attention forward (Point Transformer): kNN + per-edge delta and
+// gamma MLPs + per-channel softmax over the neighbours.
+//
+// Replaces the TPU kernel `_fwd_pallas` (sug_tpu/ops/vector_attention_pallas.py:523,
+// kernel body `_fwd_kernel` :181), behind `fused_vector_attention` (:693),
+// which every `VectorAttentionBlock` of the PTran backbone calls.
+//
+// Contract, for each point n of cloud b (k <= 16, C = 3):
+//   d_j   = -2 x_n·x_j + |x_n|^2 + |x_j|^2               (f32, j < N)
+//   idx   = the k smallest d_j, ascending; the lowest j wins a tie
+//   pos_j = relu((x_n - x_j)·Wd1 + bd1)·Wd2 + bd2          (3 -> D -> D)
+//   z_j   = (relu((q_n - key_j + pos_j)·Wg1 + bg1)·Wg2 + bg2) · s,  s = 1/sqrt(D)
+//   m     = max_j z_j,  l = sum_j exp(z_j - m)
+//   out   = sum_j exp(z_j - m) (val_j + pos_j) / l          (per channel)
+// Inputs xyz (B,N,3), q/key/val (B,N,D), wd1 (3,D), wd2/wg1/wg2 (D,D) in the
+// (in, out) layout, biases (D), all f32 contiguous and 16-byte aligned;
+// outputs out/m/l (B,N,D) f32 and idx (B,N,k) int32. D is a multiple of 128
+// up to 512. s is 1/sqrt(D) computed in double and rounded to f32, as the
+// plain PyTorch version computes it.
+//
+// What bounds it on an H100. Operations: B·N·(2·N·C + k·(2·C·D + 6·D^2)) f32,
+// almost all of it the three D×D products per edge; at PTran's level 0
+// (B=64, N=1024, D=512, k=16) that is 1.65 TFLOP, 24.7 ms at 67 TFLOP/s
+// outside the tensor cores. Bytes: xyz, q, key, val and the weights read
+// once, out/m/l/idx written once, ~0.8 GB there, 0.24 ms at 3.35 TB/s. So
+// f32 arithmetic bounds it, by about 100x.
+//
+// Design (simple and right first; tensor cores are later work):
+// - One block per (cloud, TQ queries); TQ = 1024/D, so 256 threads at
+//   D = 128, 256, 512. The block's E = 16·TQ edge rows (16 neighbour slots
+//   per query; slots past k repeat slot 0 and are masked in the softmax).
+// - Phase A, kNN: the block writes the TQ distance rows to shared memory
+//   (the same formula as the plain version, so exact duplicates tie
+//   exactly); then one warp per query runs k rounds of a warp arg-min over
+//   (distance, index).
+// - Phase B, the per-edge products, as a register-tiled SIMT product inside
+//   the kernel: thread (query, 4 channels) owns the 16 × 4 output tile of its
+//   query's 16 rows. Activations sit in two (E, D) shared-memory buffers, G
+//   (the product's input) and P (pos). Weight chunks of 16 rows stream from
+//   global memory (the 3 MB of weights stay in the 50 MB L2) through a
+//   two-stage cp.async ring. A product writes its result over its own input
+//   after the last chunk, so three products need only G and P:
+//     G = relu_d;  P = pos = G·Wd2 + bd2, G = q - key + P;
+//     G = relu(G·Wg1 + bg1);  z = (G·Wg2 + bg2)·s stays in registers.
+// - Phase C, the softmax: a thread holds all k logits of its channels, so
+//   m, l and out come from its registers, P and the gathered val rows.
+// Everything is f32 with FMAs: no TF32, no tensor cores. The kernel runs on
+// the caller's stream, does not synchronise and allocates nothing.
+
+#include <cuda_runtime.h>
+#include <math.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarp = 32;
+constexpr int kMaxK = 16;       // neighbour slots per query
+constexpr int kCols = 4;        // output channels per thread (one float4)
+constexpr int kChunk = 16;      // weight rows per pipeline stage
+constexpr int kRowsPerBlock = 1024;  // TQ·D: 256 threads of kCols channels
+constexpr int kMaxD = 512;
+constexpr size_t kSmemLimit = 227 * 1024;
+
+struct Layout {
+  int tq;             // queries per block
+  int threads;        // tq * D / kCols
+  size_t act_floats;  // G and P, or the distance rows during phase A
+  size_t bytes;       // dynamic shared memory
+};
+
+Layout make_layout(int N, int D) {
+  Layout L;
+  L.tq = kRowsPerBlock / D;
+  L.threads = L.tq * (D / kCols);
+  const size_t act = 2 * (size_t)L.tq * kMaxK * D;
+  const size_t dist = ((size_t)L.tq * N + 3) / 4 * 4;  // float4-aligned end
+  L.act_floats = act > dist ? act : dist;
+  L.bytes = sizeof(float) * (L.act_floats + 2 * (size_t)kChunk * D) +
+            sizeof(int) * (size_t)L.tq * kMaxK;
+  return L;
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy weight rows [chunk·kChunk, (chunk+1)·kChunk) of W (D, D) into `dst`.
+__device__ __forceinline__ void stage_chunk(float* dst, const float* W, int chunk, int D) {
+  const float4* src = reinterpret_cast<const float4*>(W + (size_t)chunk * kChunk * D);
+  float4* d4 = reinterpret_cast<float4*>(dst);
+  const int n4 = kChunk * D / 4;
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) cp_async16(d4 + i, src + i);
+  cp_async_commit();
+}
+
+// acc[r][c] = sum_kk A[r][kk] · W[kk][col0 + c] for this thread's 16 rows
+// (A points at its query's first row in shared memory, row stride D), in
+// ascending kk. Ends with a barrier, so the caller may overwrite A.
+__device__ __forceinline__ void rows_times_weights(float (&acc)[kMaxK][kCols],
+                                                   const float* A, const float* W,
+                                                   float* wbuf, int D, int col0) {
+#pragma unroll
+  for (int r = 0; r < kMaxK; ++r) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) acc[r][c] = 0.0f;
+  }
+  const int nchunks = D / kChunk;
+  stage_chunk(wbuf, W, 0, D);
+  for (int ch = 0; ch < nchunks; ++ch) {
+    if (ch + 1 < nchunks) {
+      stage_chunk(wbuf + ((ch + 1) & 1) * kChunk * D, W, ch + 1, D);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // chunk ch has landed for every thread
+    const float* ws = wbuf + (ch & 1) * kChunk * D + col0;
+    const float* a_chunk = A + ch * kChunk;
+#pragma unroll
+    for (int kk = 0; kk < kChunk; kk += 4) {
+      const float4 b0 = ld4(ws + (kk + 0) * D);
+      const float4 b1 = ld4(ws + (kk + 1) * D);
+      const float4 b2 = ld4(ws + (kk + 2) * D);
+      const float4 b3 = ld4(ws + (kk + 3) * D);
+#pragma unroll
+      for (int r = 0; r < kMaxK; ++r) {
+        const float4 a = ld4(a_chunk + r * D + kk);  // a broadcast in the warp
+        acc[r][0] = fmaf(a.w, b3.x, fmaf(a.z, b2.x, fmaf(a.y, b1.x, fmaf(a.x, b0.x, acc[r][0]))));
+        acc[r][1] = fmaf(a.w, b3.y, fmaf(a.z, b2.y, fmaf(a.y, b1.y, fmaf(a.x, b0.y, acc[r][1]))));
+        acc[r][2] = fmaf(a.w, b3.z, fmaf(a.z, b2.z, fmaf(a.y, b1.z, fmaf(a.x, b0.z, acc[r][2]))));
+        acc[r][3] = fmaf(a.w, b3.w, fmaf(a.z, b2.w, fmaf(a.y, b1.w, fmaf(a.x, b0.w, acc[r][3]))));
+      }
+    }
+    __syncthreads();  // stage (ch & 1) is free for chunk ch + 2
+  }
+}
+
+__global__ void __launch_bounds__(256, 1)
+vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
+                   const float* __restrict__ key, const float* __restrict__ val,
+                   const float* __restrict__ wd1, const float* __restrict__ bd1,
+                   const float* __restrict__ wd2, const float* __restrict__ bd2,
+                   const float* __restrict__ wg1, const float* __restrict__ bg1,
+                   const float* __restrict__ wg2, const float* __restrict__ bg2,
+                   float* __restrict__ out, float* __restrict__ m_out,
+                   float* __restrict__ l_out, int* __restrict__ idx_out,
+                   int N, int D, int k, float scale, int act_floats) {
+  extern __shared__ __align__(16) float smem[];
+  const int tq = kRowsPerBlock / D;
+  const int E = tq * kMaxK;
+  float* P = smem;                       // [E][D] pos
+  float* G = smem + (size_t)E * D;       // [E][D] relu_d, att_in, relu_g
+  float* dist = smem;                    // [tq][N] during phase A
+  float* wbuf = smem + act_floats;       // [2][kChunk][D]
+  int* sidx = reinterpret_cast<int*>(wbuf + 2 * kChunk * D);  // [tq][kMaxK]
+
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * tq;
+  const int per_query = D / kCols;
+  const int ql = threadIdx.x / per_query;  // this thread's query in the block
+  const int col0 = (threadIdx.x % per_query) * kCols;
+  const int n = n0 + ql;
+  const bool valid = n < N;
+  const int n_ld = valid ? n : N - 1;    // idle queries of a ragged tile
+  const float* xyzb = xyz + (size_t)b * N * 3;
+
+  // Phase A: the block's distance rows, then k arg-min rounds per query
+  for (int e = threadIdx.x; e < tq * N; e += blockDim.x) {
+    const int qi = e / N, j = e - qi * N;
+    const float* xq = xyzb + (size_t)min(n0 + qi, N - 1) * 3;
+    const float* xk = xyzb + (size_t)j * 3;
+    const float dot = fmaf(xq[2], xk[2], fmaf(xq[1], xk[1], xq[0] * xk[0]));
+    const float qsq = fmaf(xq[2], xq[2], fmaf(xq[1], xq[1], xq[0] * xq[0]));
+    const float ksq = fmaf(xk[2], xk[2], fmaf(xk[1], xk[1], xk[0] * xk[0]));
+    dist[e] = (-2.0f * dot + qsq) + ksq;
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  for (int qi = warp; qi < tq; qi += blockDim.x / kWarp) {
+    float* drow = dist + (size_t)qi * N;
+    // lanes scan their strided columns in ascending order, so a strict <
+    // keeps the lowest index per lane; the shuffle breaks ties by index
+    for (int r = 0; r < k; ++r) {
+      float bd = CUDART_INF_F;
+      int bi = N;
+      for (int j = lane; j < N; j += kWarp) {
+        const float d = drow[j];
+        if (d < bd) { bd = d; bi = j; }
+      }
+      for (int off = kWarp / 2; off > 0; off >>= 1) {
+        const float od = __shfl_xor_sync(0xffffffffu, bd, off);
+        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+        if (od < bd || (od == bd && oi < bi)) { bd = od; bi = oi; }
+      }
+      bi = min(bi, N - 1);  // only non-finite distances leave the sentinel
+      if (lane == 0) {
+        sidx[qi * kMaxK + r] = bi;
+        drow[bi] = CUDART_INF_F;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();  // sidx is complete; the distance rows are dead
+
+  int nbr[kMaxK];  // slots past k repeat slot 0: finite, and masked below
+#pragma unroll
+  for (int r = 0; r < kMaxK; ++r) nbr[r] = sidx[ql * kMaxK + (r < k ? r : 0)];
+  float* Pq = P + (size_t)ql * kMaxK * D;
+  float* Gq = G + (size_t)ql * kMaxK * D;
+  const size_t row_n = ((size_t)b * N + n_ld) * D;
+
+  // G = relu((x_n - x_j)·Wd1 + bd1)
+  {
+    const float x0 = xyzb[n_ld * 3], x1 = xyzb[n_ld * 3 + 1], x2 = xyzb[n_ld * 3 + 2];
+    const float4 w0 = ld4(wd1 + col0), w1 = ld4(wd1 + D + col0), w2 = ld4(wd1 + 2 * D + col0);
+    const float4 bias = ld4(bd1 + col0);
+#pragma unroll
+    for (int r = 0; r < kMaxK; ++r) {
+      const float* xj = xyzb + (size_t)nbr[r] * 3;
+      const float d0 = x0 - xj[0], d1 = x1 - xj[1], d2 = x2 - xj[2];
+      float4 h;
+      h.x = fmaxf(fmaf(d2, w2.x, fmaf(d1, w1.x, d0 * w0.x)) + bias.x, 0.0f);
+      h.y = fmaxf(fmaf(d2, w2.y, fmaf(d1, w1.y, d0 * w0.y)) + bias.y, 0.0f);
+      h.z = fmaxf(fmaf(d2, w2.z, fmaf(d1, w1.z, d0 * w0.z)) + bias.z, 0.0f);
+      h.w = fmaxf(fmaf(d2, w2.w, fmaf(d1, w1.w, d0 * w0.w)) + bias.w, 0.0f);
+      st4(Gq + r * D + col0, h);
+    }
+  }
+  __syncthreads();
+
+  float acc[kMaxK][kCols];
+
+  // P = G·Wd2 + bd2;  G = (q_n - key_j) + P
+  rows_times_weights(acc, Gq, wd2, wbuf, D, col0);
+  {
+    const float4 bias = ld4(bd2 + col0);
+    const float4 qv = ld4(q + row_n + col0);
+#pragma unroll
+    for (int r = 0; r < kMaxK; ++r) {
+      const float4 kv = ld4(key + ((size_t)b * N + nbr[r]) * D + col0);
+      const float4 p = make_float4(acc[r][0] + bias.x, acc[r][1] + bias.y,
+                                   acc[r][2] + bias.z, acc[r][3] + bias.w);
+      st4(Pq + r * D + col0, p);
+      st4(Gq + r * D + col0, make_float4((qv.x - kv.x) + p.x, (qv.y - kv.y) + p.y,
+                                         (qv.z - kv.z) + p.z, (qv.w - kv.w) + p.w));
+    }
+  }
+  __syncthreads();
+
+  // G = relu(G·Wg1 + bg1)
+  rows_times_weights(acc, Gq, wg1, wbuf, D, col0);
+  {
+    const float4 bias = ld4(bg1 + col0);
+#pragma unroll
+    for (int r = 0; r < kMaxK; ++r) {
+      st4(Gq + r * D + col0,
+          make_float4(fmaxf(acc[r][0] + bias.x, 0.0f), fmaxf(acc[r][1] + bias.y, 0.0f),
+                      fmaxf(acc[r][2] + bias.z, 0.0f), fmaxf(acc[r][3] + bias.w, 0.0f)));
+    }
+  }
+  __syncthreads();
+
+  // z = (G·Wg2 + bg2)·s in registers; the softmax over the k valid slots
+  rows_times_weights(acc, Gq, wg2, wbuf, D, col0);
+  if (!valid) return;  // no barrier follows
+  const float bias[kCols] = {bg2[col0], bg2[col0 + 1], bg2[col0 + 2], bg2[col0 + 3]};
+  float mx[kCols], lsum[kCols], o[kCols];
+#pragma unroll
+  for (int c = 0; c < kCols; ++c) {
+    mx[c] = -CUDART_INF_F;
+    lsum[c] = 0.0f;
+    o[c] = 0.0f;
+  }
+#pragma unroll
+  for (int r = 0; r < kMaxK; ++r) {
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) {
+      acc[r][c] = (acc[r][c] + bias[c]) * scale;
+      if (r < k) mx[c] = fmaxf(mx[c], acc[r][c]);
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < kMaxK; ++r) {
+    if (r < k) {
+      const float4 v = ld4(val + ((size_t)b * N + nbr[r]) * D + col0);
+      const float4 p = ld4(Pq + r * D + col0);
+      const float vp[kCols] = {v.x + p.x, v.y + p.y, v.z + p.z, v.w + p.w};
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float e = expf(acc[r][c] - mx[c]);
+        lsum[c] += e;
+        o[c] += e * vp[c];
+      }
+    }
+  }
+  const size_t row = ((size_t)b * N + n) * D + col0;
+  st4(out + row, make_float4(o[0] / lsum[0], o[1] / lsum[1], o[2] / lsum[2], o[3] / lsum[3]));
+  st4(m_out + row, make_float4(mx[0], mx[1], mx[2], mx[3]));
+  st4(l_out + row, make_float4(lsum[0], lsum[1], lsum[2], lsum[3]));
+  if (col0 == 0) {
+    for (int r = 0; r < k; ++r) idx_out[((size_t)b * N + n) * k + r] = sidx[ql * kMaxK + r];
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches the kernel on `stream`. Returns a cudaError_t:
+// cudaErrorInvalidValue when the shapes are out of range (D not a multiple
+// of 128 up to 512, k outside [1, min(N, 16)]) or N is too large for the
+// distance rows in shared memory; otherwise cudaGetLastError() after the
+// launch.
+int vecattn_fwd(const float* xyz, const float* q, const float* key, const float* val,
+                const float* wd1, const float* bd1, const float* wd2, const float* bd2,
+                const float* wg1, const float* bg1, const float* wg2, const float* bg2,
+                float* out, float* m, float* l, int* idx,
+                int B, int N, int D, int k, void* stream) {
+  if (B < 1 || B > 65535 || N < 1 || k < 1 || k > kMaxK || k > N || D < 128 ||
+      D > kMaxD || D % 128 != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const Layout L = make_layout(N, D);
+  if (L.bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  cudaError_t err = cudaFuncSetAttribute(
+      vecattn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((N + L.tq - 1) / L.tq, B);
+  vecattn_fwd_kernel<<<grid, L.threads, L.bytes, (cudaStream_t)stream>>>(
+      xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l, idx,
+      N, D, k, scale, (int)L.act_floats);
+  return (int)cudaGetLastError();
+}
+
+const char* vecattn_error_string(int err) {
+  return cudaGetErrorString((cudaError_t)err);
+}
+
+}  // extern "C"

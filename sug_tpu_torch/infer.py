@@ -4,12 +4,14 @@ Loads a twin-head DG model, classifies clouds with the ensemble
 ``(logits1 + logits2) / 2``, reports accuracy on a dataset split or predicts
 an ``.npy`` of clouds, and optionally saves the predictions.
 
-    python -m sug_tpu_torch.infer --ckpt model.pt --model DGCNN --dg \\
+    python -m sug_tpu_torch.infer --ckpt model.pt --model (DGCNN | PTran) --dg \\
         (--dataset scannet --split test | --pts clouds.npy) \\
         [--batch_size 64] [--num_points 1024] [--device cuda] [--save preds.npy]
 
 ``--ckpt`` takes the port's own ``torch.save`` checkpoint or an ``.npz`` of
-the JAX package's variables (see the README).
+the JAX package's variables (see the README). A PTran model is built for
+``--num_points`` points (its ``point_mix`` layer), so its checkpoint must
+come from a model of that size.
 """
 
 from __future__ import annotations
@@ -32,7 +34,7 @@ from sug_tpu_torch.models.net_mda import NetMDA, ensemble_logits
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ckpt", required=True, help="port checkpoint (.pt) or JAX variables (.npz)")
-    ap.add_argument("--model", default="DGCNN")
+    ap.add_argument("--model", default="DGCNN", help="DGCNN or PTran")
     ap.add_argument("--dg", action="store_true", help="DG twin-head checkpoint (ensembled)")
     ap.add_argument("--dataset", default=None, help="scannet/shapenet/modelnet")
     ap.add_argument("--split", default="test")
@@ -48,8 +50,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     return args
 
 
-def load_model(model_name: str, ckpt: str, device: torch.device) -> NetMDA:
-    model = NetMDA(model_name)
+def load_model(model_name: str, ckpt: str, device: torch.device,
+               num_points: int = 1024) -> NetMDA:
+    model = NetMDA(model_name, num_points=num_points)
     load_checkpoint(ckpt, model)
     return model.eval().to(device)
 
@@ -74,7 +77,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             "it is queued in ROADMAP.md"
         )
     device = resolve_device(args.device)
-    model = load_model(args.model, args.ckpt, device)
+    model = load_model(args.model, args.ckpt, device, args.num_points)
 
     if args.pts:
         raw = np.load(args.pts).astype(np.float32)[..., :3]

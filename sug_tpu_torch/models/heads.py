@@ -1,6 +1,6 @@
-"""Classifier head: counterpart of ``ClassifierHead(dgcnn=True)`` in
-``sug_tpu/models/heads.py``. The relu and PTran variants and the KPConv head
-come with their backbones' slices (ROADMAP.md)."""
+"""Classifier head: counterpart of ``ClassifierHead`` in
+``sug_tpu/models/heads.py``, in its three variants. The KPConv head comes with
+its backbone's slice (ROADMAP.md)."""
 
 from __future__ import annotations
 
@@ -11,22 +11,31 @@ from torch import nn
 
 from sug_tpu_torch.models.layers import FCLayer
 
+VARIANTS = ("dgcnn", "relu", "ptran")
+
 
 class ClassifierHead(nn.Module):
-    """1024 -> 512 -> 256 -> num_class with leaky-relu FC layers (the DGCNN
-    variant: biased first FC). Returns (logits, the 256-d pre-dropout mid
-    feature).
+    """1024 -> 512 -> 256 -> num_class. Returns (logits, the 256-d
+    pre-dropout mid feature). ``variant``:
+
+    - ``dgcnn``: leaky-relu FC layers, ``mlp1`` biased (``dgcnn=True``);
+    - ``relu``: relu FC layers, ``mlp1`` without bias (the PointNet heads);
+    - ``ptran``: relu, and no ``mlp1``: the PTran generator's global feature
+      is already 512-d (``ptran=True``).
 
     Dropout (rate ``dropout_rate``, after ``mlp1`` and after the mid
     feature) runs in train mode only, as flax's ``nn.Dropout``: a kept unit
     is scaled by ``1 / (1 - rate)``. Its masks come from ``generator``, which
     train mode with a non-zero rate requires."""
 
-    def __init__(self, num_class: int = 10, in_features: int = 1024,
-                 dropout_rate: float = 0.4):
+    def __init__(self, num_class: int = 10, variant: str = "dgcnn", dropout_rate: float = 0.4):
         super().__init__()
-        self.mlp1 = FCLayer(in_features, 512, act="leakyrelu", use_bias=True)
-        self.mlp2 = FCLayer(512, 256, act="leakyrelu", use_bias=True)
+        if variant not in VARIANTS:
+            raise ValueError(f"ClassifierHead variant must be one of {VARIANTS}, got {variant!r}")
+        act = "leakyrelu" if variant == "dgcnn" else "relu"
+        self.mlp1 = None if variant == "ptran" else FCLayer(1024, 512, act=act,
+                                                           use_bias=variant == "dgcnn")
+        self.mlp2 = FCLayer(512, 256, act=act, use_bias=True)
         self.mlp3 = nn.Linear(256, num_class)
         self.dropout_rate = dropout_rate
 
@@ -42,7 +51,8 @@ class ClassifierHead(nn.Module):
     def forward(
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.dropout(self.mlp1(x), generator)
+        if self.mlp1 is not None:
+            x = self.dropout(self.mlp1(x), generator)
         mid_feature = self.mlp2(x)
         logits = self.mlp3(self.dropout(mid_feature, generator))
         return logits, mid_feature

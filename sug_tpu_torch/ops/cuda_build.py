@@ -96,3 +96,20 @@ def build(name: str) -> Built:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``."""
     return build(name).lib
+
+
+def library(name: str, error_string: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
+    """``load(name)`` with the argument types of its launcher ``name`` (the
+    pointers, then the ints, then the stream; returns a ``cudaError_t``) and
+    of ``error_string`` (``cudaGetErrorString``) declared."""
+    lib = load(name)
+    fn = getattr(lib, name)
+    if fn.argtypes is None:
+        # every pointer and the stream as c_void_p: an undeclared pointer
+        # argument would be passed as a 32-bit int and cut
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        err_fn = getattr(lib, error_string)
+        err_fn.argtypes = [ctypes.c_int]
+        err_fn.restype = ctypes.c_char_p
+    return lib

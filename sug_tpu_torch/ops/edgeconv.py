@@ -22,7 +22,6 @@ it launches its hand-written kernel (``csrc/edgeconv_fwd.cu``,
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -71,22 +70,8 @@ def _check(q, kv, u, v, k: int) -> None:
         raise ValueError(f"edgeconv_reduce: need 1 <= k <= N, got k={k}, N={N}")
 
 
-def _library(name: str, error_string: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
-    lib = cuda_build.load(name)
-    fn = getattr(lib, name)
-    if fn.argtypes is None:
-        # every pointer and the stream as c_void_p: an undeclared pointer
-        # argument would be passed as a 32-bit int and cut
-        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * n_ints + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        err_fn = getattr(lib, error_string)
-        err_fn.argtypes = [ctypes.c_int]
-        err_fn.restype = ctypes.c_char_p
-    return lib
-
-
 def _launch(q, kv, u, v, k: int) -> Outputs:
-    lib = _library("edgeconv_fwd", "edgeconv_error_string", 9, 6)
+    lib = cuda_build.library("edgeconv_fwd", "edgeconv_error_string", 9, 6)
     B, S, C = q.shape
     N, F = kv.shape[1], u.shape[-1]
     amax, amin, s1, s2 = (torch.empty((B, S, F), dtype=torch.float32, device=q.device)
@@ -180,7 +165,7 @@ def _check_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2) -> None:
 
 
 def _launch_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2):
-    lib = _library("edgeconv_bwd", "edgeconv_bwd_error_string", 11, 5)
+    lib = cuda_build.library("edgeconv_bwd", "edgeconv_bwd_error_string", 11, 5)
     B, S, k = idx.shape
     N, F = u.shape[1], u.shape[2]
     du = torch.empty_like(u)  # the kernel writes every element

@@ -1,9 +1,11 @@
 """Carry the JAX package's weights into the port.
 
 ``state_dict_from_jax(variables)`` takes the ``{"params", "batch_stats"}``
-tree of ``sug_tpu``'s ``NetMDA(DGCNN)``, as nested dicts of numpy arrays, and
-returns the port's ``state_dict``. The port's modules are named after the
-JAX tree, so the bridge is a rename plus a transpose:
+tree of ``sug_tpu``'s ``NetMDA`` (DGCNN or PTran), as nested dicts of numpy
+arrays, and returns the port's ``state_dict``. The port's modules are named
+after the JAX tree (PTran's ``g/backbone/transformer1/w_qs``,
+``g/backbone/td0/mlp0/Dense_0``, ``g/point_mix``, ...), so the bridge is a
+rename plus a transpose:
 
 - module path: kept, with flax's auto-names renamed (``AUTONAMES``);
 - leaf: ``kernel`` -> ``weight`` (flax Dense ``(in, out)`` transposed to
