@@ -18,7 +18,13 @@ ends the run with a non-zero exit; the phases, in order:
    launches agreeing bit for bit; the vector-attention forward at the five
    levels of the PTran forward at B=64 (N=1024 and the ragged N=1000), at
    D=128, and on integer lattices with duplicate points, where the
-   neighbour indices must match index for index;
+   neighbour indices must match index for index; the vector-attention
+   backward, fed the forward kernel's own idx, m, l and out, at the same
+   levels of N=1024, at the ragged levels at D=128 and on a lattice with
+   duplicate points: the edge kernel's staged per-edge tensors against the
+   plain version's, the other kernels' sums against the plain sums of those
+   staged tensors, every output against the plain backward, and two calls
+   agreeing bit for bit;
 4. the slices through their entry points, each with every launch count set
    to 0 just before it and read just after: ``sug_tpu_torch.infer``
    (``--model DGCNN --dg --batch_size 64``) on synthetic clouds and a
@@ -30,12 +36,15 @@ ends the run with a non-zero exit; the phases, in order:
    card against the CPU plain path; then ``infer --model PTran --dg
    --batch_size 64`` (transformer width 512) on synthetic clouds and a
    synthetic dataset, 5 vector-attention launches per batch, and its logits
-   of 16 clouds against the CPU plain path; and a backward through the
-   vector attention on the card, which must raise (no backward kernel yet);
+   of 16 clouds against the CPU plain path; then ``train_dg_single_gpu
+   --set Model PTran`` (batch 64, 1024 points) for one epoch and ``--resume``
+   for a second, 10 vector-attention forward launches and 10 backward calls
+   per step, 5 forward launches per eval batch and no EdgeConv launch; then
+   one PTran ``_loss(train=True)`` at B=8 on the card against the CPU;
 5. times, with CUDA events after warm-up: each kernel shape beside its bound
    and its plain version, the DGCNN and PTran inference forwards per batch
-   of 64, and the DG train step at B=64+64 with its peak memory; each with a
-   ``torch.profiler`` breakdown of device time by kernel.
+   of 64, and the DGCNN and PTran DG train steps at B=64+64 with their peak
+   memory; each with a ``torch.profiler`` breakdown of device time by kernel.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -132,6 +141,26 @@ VA_RAGGED = [
 VA_REL_TOL = 1e-5
 # the PTran serving run: 2 batches of 64 clouds for --pts, 100 dataset clouds
 PTRAN_CLOUDS = 2 * B
+# vector-attention backward. The edge kernel's staged per-edge tensors against
+# the plain version's, to 2e-5 relative to max(|plain|, the tensor's rms):
+# six chained D-term products in another order than cuBLAS. A relu whose
+# input is zero up to that rounding may switch differently on the two sides;
+# such flips must be rarer than 1e-5 of the elements, each at a value below
+# 1e-5, and the cotangents downstream of a flipped edge are not compared.
+VA_EDGE_TOL = 2e-5
+VA_FLIP_MARGIN = 1e-5
+VA_MAX_FLIP_SHARE = 1e-5
+# The other kernels' outputs against the plain sums of the edge kernel's own
+# staged tensors (no flips between them), to 1e-5 of max(sum of the terms'
+# magnitudes, its mean over the tensor): sums of up to 2^20 terms of both
+# signs in another order. dbg2 is zero up to rounding and has only this scale.
+VA_SUM_TOL = 1e-5
+# Every output against the plain backward end to end, in relative L2 (dbg2:
+# relative to its terms' magnitudes): a flipped relu moves a whole dq or dkey
+# row by about 1e-2 of its size, so this is a looser check of the whole.
+VA_BWD_REL_L2 = 5e-3
+# the kernels of one backward call, in launch order
+VA_BWD_KERNELS = ("edge", "wgrad", "thin", "scatter", "reduce")
 
 
 def fail(msg: str) -> None:
@@ -330,6 +359,144 @@ def compare_va(name, got, want, require_exact_idx=False):
     return max_err
 
 
+def va_bwd_bound(args, k):
+    """(bound_ms, bound_by, bytes, flops) of one vector-attention backward:
+    the forward's inputs, idx, m, l, out and dout read once and the eleven
+    gradients written once, against B·N·k·(18·D² + 4·C·D) f32 operations: per
+    edge three D×D products to replay the forward, three back through the
+    chain and three outer products for the weight gradients, and the C->D
+    layer and its gradient."""
+    xyz, q = args[0], args[1]
+    Bq, n, c = xyz.shape
+    d = q.shape[-1]
+    weights = sum(t.numel() * 4 for t in args[4:])
+    nbytes = (sum(t.numel() * 4 for t in args[:4]) + weights + Bq * n * k * 4
+              + 4 * Bq * n * d * 4 + 3 * Bq * n * d * 4 + weights)
+    flops = float(Bq) * n * k * (18.0 * d * d + 4.0 * c * d)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
+def va_bwd_saved(args, k, gen):
+    """What the backward takes beside the forward's inputs: idx, m, l, out of
+    one forward kernel launch, and a unit-normal cotangent."""
+    out, m, l, idx = vector_attention.vector_attention_fwd(*args, k)
+    return idx, m, l, out, torch.randn(out.shape, generator=gen, device=out.device)
+
+
+def compare_va_bwd(name, args, k, gen):
+    """The vector-attention backward kernels against the plain version on
+    the same inputs, fed one forward launch's idx, m, l, out. Chunk by chunk
+    of clouds, as the wrapper walks them: the edge kernel's staged tensors
+    against ``edge_terms``; dq, dkey, dval and the weight gradients against
+    ``reduce_edge_terms`` of those staged tensors; then every output against
+    the plain backward. Two calls must agree bit for bit. Returns the
+    largest |diff| against the plain sums of the staged tensors."""
+    va = vector_attention
+    saved = va_bwd_saved(args, k, gen)
+    got = va.vector_attention_bwd(*args, k, *saved)
+    again = va.vector_attention_bwd(*args, k, *saved)
+    torch.cuda.synchronize()
+    if not all(torch.equal(g, a) for g, a in zip(got, again)):
+        fail(f"{name}: two backward calls on the same inputs differ")
+    if not all(torch.isfinite(g).all() for g in got):
+        fail(f"{name}: the backward has non-finite values")
+    del again
+    nb, n, d = args[0].shape[0], args[0].shape[1], args[1].shape[-1]
+    per_chunk = va.clouds_per_chunk(n, d)
+    outputs = va.BWD_NAMES
+    own_w = [torch.zeros_like(g, dtype=torch.float64) for g in got[3:]]
+    scale_w = [torch.zeros_like(g, dtype=torch.float64) for g in got[3:]]
+    plain_w = [torch.zeros_like(g, dtype=torch.float64) for g in got[3:]]
+    plain_rows = [[], [], []]
+    edge_err = dict.fromkeys(("delta", "relu_d", "att_in", "relu_g", "dvpos", "dzs", "dh_g",
+                              "datt", "dpos", "dh_d"), 0.0)
+    sum_err = dict.fromkeys(outputs, 0.0)
+    max_abs, flips, flip_value, elements = 0.0, 0, 0.0, 0
+
+    def held(label, g, w, scale):
+        nonlocal max_abs
+        diff = (g - w).abs()
+        max_abs = max(max_abs, diff.max().item())
+        sum_err[label] = max(sum_err[label],
+                             (diff / torch.clamp(scale, min=scale.mean().item())).max().item())
+
+    for b0 in range(0, nb, per_chunk):
+        c = slice(b0, b0 + per_chunk)
+        cargs = [a[c] for a in args[:4]] + list(args[4:])
+        csaved = [t[c] for t in saved]
+        dq_k, staged = va.staged_edge_terms(*cargs, k, *csaved)
+        if not torch.equal(dq_k, got[0][c]):
+            fail(f"{name}: the edge kernel alone and inside the backward give different dq")
+        if k < vector_attention.MAX_K:
+            past_k = max(staged[t][:, :, k:].abs().max().item()
+                         for t in ("dvpos", "dzs", "dh_g", "datt", "dpos", "dh_d"))
+            if past_k != 0.0:
+                fail(f"{name}: a slot past k holds a cotangent of {past_k:.3e}, not zero")
+        own = {t: v[:, :, :k] for t, v in staged.items()}
+        plain = va.edge_terms(*cargs, *csaved)
+        # relus that switch differently, and the edges they reach
+        flip_g = (own["relu_g"] > 0) != (plain["relu_g"] > 0)
+        flip_d = (own["relu_d"] > 0) != (plain["relu_d"] > 0)
+        for flip, t in ((flip_g, "relu_g"), (flip_d, "relu_d")):
+            flips += int(flip.sum())
+            elements += flip.numel()
+            if flip.any():
+                flip_value = max(flip_value,
+                                 torch.maximum(own[t], plain[t])[flip].max().item())
+        clean = {"dh_g": ~flip_g.any(-1), "dh_d": ~(flip_g.any(-1) | flip_d.any(-1))}
+        clean["datt"] = clean["dpos"] = clean["dh_g"]
+        for t in edge_err:
+            rel = (own[t] - plain[t]).abs() / torch.clamp(plain[t].abs(),
+                                                          min=plain[t].square().mean().sqrt().item())
+            if t in clean:
+                rel = rel[clean[t]]
+            if rel.numel():
+                edge_err[t] = max(edge_err[t], rel.max().item())
+        del rel, flip_g, flip_d, clean
+        idx_c = csaved[0]
+        sums = va.reduce_edge_terms(own, idx_c)
+        scales = [s_.abs() for s_ in va.reduce_edge_terms({t: v.abs() for t, v in own.items()}, idx_c)]
+        for i in range(3):
+            held(outputs[i], got[i][c], sums[i], scales[i])
+        plain_sums = va.reduce_edge_terms(plain, idx_c)
+        for i in range(3):
+            plain_rows[i].append(plain_sums[i])
+        for i in range(len(own_w)):
+            own_w[i] += sums[3 + i].double()
+            scale_w[i] += scales[3 + i].double()
+            plain_w[i] += plain_sums[3 + i].double()
+        del staged, own, plain, sums, scales, plain_sums
+    for i, g in enumerate(got[3:]):
+        held(outputs[3 + i], g.double(), own_w[i], scale_w[i])
+    l2 = {}
+    for i, label in enumerate(outputs):
+        w = torch.cat(plain_rows[i]) if i < 3 else plain_w[i - 3]
+        ref = scale_w[i - 3] if label == "dbg2" else w
+        l2[label] = ((got[i].double() - w).norm() / ref.double().norm().clamp(min=1e-30)).item()
+    flip_share = flips / max(elements, 1)
+    print(f"  {name}: staged edge tensors within {max(edge_err.values()):.3e} "
+          f"(worst {max(edge_err, key=edge_err.get)}), {flips} relu flips ({flip_share:.2e} of "
+          f"the elements, values up to {flip_value:.2e}); sums of the staged tensors within "
+          f"{max(sum_err.values()):.3e} of their terms (worst {max(sum_err, key=sum_err.get)}, "
+          f"max |diff| {max_abs:.3e}); against the plain backward within {max(l2.values()):.3e} "
+          f"relative L2 (worst {max(l2, key=l2.get)}); two calls bit-identical", flush=True)
+    for t, err in edge_err.items():
+        if err > VA_EDGE_TOL:
+            fail(f"{name}: staged {t} differs by {err:.3e} of max(|plain|, rms) (> {VA_EDGE_TOL})")
+    if flip_share > VA_MAX_FLIP_SHARE or flip_value > VA_FLIP_MARGIN:
+        fail(f"{name}: {flips} relu flips ({flip_share:.2e} of the elements) at values up to "
+             f"{flip_value:.2e}")
+    for label, err in sum_err.items():
+        if err > VA_SUM_TOL:
+            fail(f"{name}: {label} differs by {err:.3e} of its terms' magnitude (> {VA_SUM_TOL})")
+    for label, err in l2.items():
+        if err > VA_BWD_REL_L2:
+            fail(f"{name}: {label} differs from the plain backward by {err:.3e} relative L2 "
+                 f"(> {VA_BWD_REL_L2})")
+    return max_abs
+
+
 def randomize_bn(model, gen):
     """Random BN running stats, scales of random sign (about a third
     negative, so the EdgeConv epilogue takes its amin branch) and biases."""
@@ -409,60 +576,107 @@ def reset_counts():
     edgeconv.edgeconv_reduce.launches = 0
     edgeconv.edgeconv_reduce_bwd.launches = 0
     vector_attention.vector_attention_fwd.launches = 0
+    vector_attention.vector_attention_bwd.calls = 0
+    for kernel in VA_BWD_KERNELS:
+        vector_attention.vector_attention_bwd.launches[kernel] = 0
 
 
 def counts():
-    """Launches since ``reset_counts``: EdgeConv forward, EdgeConv backward,
-    vector-attention forward."""
+    """Since ``reset_counts``: EdgeConv forward and backward launches,
+    vector-attention forward launches and backward calls (each backward
+    kernel's own launches are in ``vector_attention_bwd.launches``)."""
     torch.cuda.synchronize()
     return (edgeconv.edgeconv_reduce.launches, edgeconv.edgeconv_reduce_bwd.launches,
-            vector_attention.vector_attention_fwd.launches)
+            vector_attention.vector_attention_fwd.launches,
+            vector_attention.vector_attention_bwd.calls)
 
 
-def train_run(train_main, root, epochs, extra=()):
+def va_bwd_launches_per_call(batch):
+    """Each backward kernel's launches in the five backward calls of one
+    PTran forward of ``batch`` clouds: edge, wgrad, thin and scatter once per
+    chunk of clouds of each level, reduce once per level."""
+    chunks = sum(math.ceil(batch / vector_attention.clouds_per_chunk(n, D_MODEL))
+                 for _, n, _ in VA_SHAPES)
+    return {kernel: len(VA_SHAPES) if kernel == "reduce" else chunks for kernel in VA_BWD_KERNELS}
+
+
+def train_run(train_main, root, epochs, model_name, extra=()):
     """One run of the training front door on the card, counting launches;
-    fails unless every train step took 10 forward and 10 backward launches
-    and every eval batch 5 forward ones, and every loss is finite."""
+    fails unless every loss is finite and the counts are exact: for DGCNN 10
+    EdgeConv forward and 10 backward launches per train step and 5 forward
+    ones per eval batch; for PTran 10 vector-attention forward launches and
+    10 backward calls per step (each backward kernel as
+    ``va_bwd_launches_per_call`` says), 5 forward launches per eval batch.
+    Returns the result, the four counts and the backward kernels' counts."""
     argv = ["--source", "modelnet", "--cfg", YAML, "--batch_size", str(B),
             "--num_points", str(N_POINTS), "--device", "cuda", "--ckpt_save_interval", "1",
-            "--fix_random_seed", *extra, "--set", "Model", "DGCNN", "DATA_ROOT", root,
+            "--fix_random_seed", *extra, "--set", "Model", model_name, "DATA_ROOT", root,
             "OPTIMIZATION.NUM_EPOCHES", str(epochs)]
     reset_counts()
     t0 = time.perf_counter()
     result = train_main(argv)
-    fwd, bwd, n_va = counts()
+    got = counts()
+    by_kernel = dict(vector_attention.vector_attention_bwd.launches)
     seconds = time.perf_counter() - t0
     steps = sum(h["steps"] for h in result["history"])
     evals = sum(h["eval_batches"] for h in result["history"])
-    print(f"train_dg_single_gpu epochs {[h['epoch'] for h in result['history']]}: {steps} steps, "
+    fwd, bwd = (got[0], got[1]) if model_name == "DGCNN" else (got[2], got[3])
+    print(f"train_dg_single_gpu --set Model {model_name} epochs "
+          f"{[h['epoch'] for h in result['history']]}: {steps} steps, "
           f"{evals} eval batches in {seconds:.1f} s; launches: forward {fwd} "
           f"({fwd - 5 * evals} in training, {(fwd - 5 * evals) / max(steps, 1):g} per step), "
-          f"backward {bwd} ({bwd / max(steps, 1):g} per step)", flush=True)
+          f"backward {bwd} ({bwd / max(steps, 1):g} per step)"
+          + (f", its kernels {by_kernel}" if model_name == "PTran" else ""), flush=True)
     for h in result["history"]:
         print(f"  epoch {h['epoch']}: loss_cls {h['loss_cls']:.6f} loss_geo {h['loss_geo']:.6f} "
               f"loss_sem {h['loss_sem']:.6f}, {h['ms_per_step']:.1f} ms per step incl. host",
               flush=True)
         if not all(math.isfinite(h[k]) for k in ("loss_cls", "loss_geo", "loss_sem")):
             fail(f"training epoch {h['epoch']}: non-finite loss {h}")
-    if steps == 0 or fwd != 10 * steps + 5 * evals or bwd != 10 * steps or n_va != 0:
-        fail(f"training: {fwd} forward, {bwd} backward and {n_va} vector-attention launches "
-             f"for {steps} steps and {evals} eval batches (expected "
-             f"{10 * steps + 5 * evals}, {10 * steps} and 0)")
-    return result, fwd, bwd
+    main_path = (10 * steps + 5 * evals, 10 * steps)
+    want = main_path + (0, 0) if model_name == "DGCNN" else (0, 0) + main_path
+    per_call = va_bwd_launches_per_call(B)
+    want_by_kernel = {kernel: (2 * steps * n if model_name == "PTran" else 0)
+                      for kernel, n in per_call.items()}
+    if steps == 0 or got != want or by_kernel != want_by_kernel:
+        fail(f"training {model_name}: launches (edgeconv forward, backward, vector-attention "
+             f"forward, backward calls) {got} and backward kernels {by_kernel} for {steps} steps "
+             f"and {evals} eval batches, expected {want} and {want_by_kernel}")
+    return result, got, by_kernel
 
 
-def card_against_cpu(cfg, rng):
+def train_and_resume(train_main, rng, model_name):
+    """The training front door for one epoch on a synthetic PointDA tree,
+    then ``--resume`` from its checkpoint for a second. Returns the first
+    run's four counts and its backward kernels' counts."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        root = os.path.join(tmp, "data", "PointDA_data")
+        write_pointda_tree(root, rng)
+        _, got, by_kernel = train_run(train_main, root, 1, model_name)
+        ckpts = sorted(glob.glob(os.path.join(root, "output", "**", "*_checkpoint_epoch_1.pt"),
+                                 recursive=True))
+        if len(ckpts) != 1:
+            fail(f"training wrote {ckpts} as its epoch-1 checkpoint")
+        resumed, _, _ = train_run(train_main, root, 2, model_name, extra=("--resume", ckpts[0]))
+        if [h["epoch"] for h in resumed["history"]] != [1]:
+            fail(f"--resume ran epochs {[h['epoch'] for h in resumed['history']]}, expected [1]")
+    print(f"--resume from {os.path.basename(ckpts[0])} continued at epoch 1", flush=True)
+    return got, by_kernel
+
+
+def card_against_cpu(cfg, rng, model_name):
     """One ``_loss(train=True)`` at B=8 with the same weights, batch, FPS
     starts and no dropout, on the card and on the CPU plain path."""
     from sug_tpu_torch.data.datasets import PointCloudDataset, make_synthetic_pointda
     from sug_tpu_torch.engine.dg_trainer import DGTrainer
 
     pts, labels = make_synthetic_pointda(num_per_class=2, num_points=N_POINTS, seed=7)
-    ds = PointCloudDataset("modelnet", pts, labels, num_points=N_POINTS, model="DGCNN")
+    ds = PointCloudDataset("modelnet", pts, labels, num_points=N_POINTS, model=model_name)
     fps = [torch.from_numpy(rng.integers(0, N_POINTS, CARD_B)) for _ in range(2)]
     runs = {}
     for dev in ("cuda", "cpu"):
-        tr = DGTrainer(cfg, model_name="DGCNN", augment=False, device=dev, seed=0)
+        tr = DGTrainer(cfg, model_name=model_name, augment=False, device=dev, seed=0,
+                       num_points=N_POINTS)
         tr.model.c1.dropout_rate = tr.model.c2.dropout_rate = 0.0
         batch = [torch.from_numpy(a).to(dev) for a in
                  (ds.pts[:CARD_B], ds.labels[:CARD_B].astype(np.int64),
@@ -483,16 +697,16 @@ def card_against_cpu(cfg, rng):
             rel = abs(got - want) / max(abs(want), 1e-12)
             worst_loss = max(worst_loss, rel)
             if rel > MAX_LOSS_REL:
-                fail(f"card vs CPU: {k} (mmd {mmd_on}) {got} vs {want}, {rel:.3e} relative")
+                fail(f"{model_name} card vs CPU: {k} (mmd {mmd_on}) {got} vs {want}, {rel:.3e} relative")
     g_card, g_cpu = runs["cuda"][False][1], runs["cpu"][False][1]
     floor = 1e-2 * max(g.norm().item() for g in g_cpu.values())
     rel = {n: (g_card[n] - g).norm().item() / max(g.norm().item(), floor) for n, g in g_cpu.items()}
     name = max(rel, key=rel.get)
-    print(f"DG _loss(train=True) at B={CARD_B}, card vs CPU: losses within {worst_loss:.3e} "
+    print(f"{model_name} DG _loss(train=True) at B={CARD_B}, card vs CPU: losses within {worst_loss:.3e} "
           f"relative (total {runs['cuda'][True][0]['loss_total']:.6f}); gradients within "
           f"{rel[name]:.3e} relative L2 (worst {name})", flush=True)
     if rel[name] > MAX_GRAD_REL_L2:
-        fail(f"card vs CPU: gradient of {name} differs by {rel[name]:.3e} relative L2")
+        fail(f"{model_name} card vs CPU: gradient of {name} differs by {rel[name]:.3e} relative L2")
 
 
 def check_logits(what, card, cpu, preds):
@@ -515,8 +729,8 @@ def infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds, want_per_batch):
     """``infer.main`` on ``--pts`` (``n_clouds`` clouds) and on a synthetic
     ``--dataset`` (100 clouds), each with the launch counts set to 0 just
     before and read just after; fails unless every batch of 64 took
-    ``want_per_batch`` (EdgeConv forward, backward, vector attention)
-    launches. Returns the summed counts, the raw clouds and their
+    ``want_per_batch`` (EdgeConv forward, backward, vector-attention forward,
+    backward calls) launches. Returns the summed counts, the raw clouds and their
     predictions."""
     raw, _ = synthetic_clouds(rng, n_clouds)
     pts_file = os.path.join(tmp, f"{model_name}_clouds.npy")
@@ -528,7 +742,7 @@ def infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds, want_per_batch):
     np.save(os.path.join(root, "scannet", "test_label.npy"), ds_labels)
     common = ["--ckpt", ckpt, "--model", model_name, "--dg", "--batch_size", str(B),
               "--num_points", str(N_POINTS), "--device", "cuda"]
-    total = np.zeros(3, dtype=np.int64)
+    total = np.zeros(4, dtype=np.int64)
     for label, extra, m in (
         ("pts", ["--pts", pts_file], n_clouds),
         ("dataset", ["--dataset", "scannet", "--split", "test", "--data_root", root], 100),
@@ -539,10 +753,12 @@ def infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds, want_per_batch):
         batches = math.ceil(m / B)
         want = np.array(want_per_batch) * batches
         print(f"infer --model {model_name} --{label}: {batches} batches; launches: edgeconv "
-              f"forward {got[0]}, backward {got[1]}, vector attention {got[2]}", flush=True)
+              f"forward {got[0]}, backward {got[1]}, vector attention forward {got[2]}, "
+              f"backward calls {got[3]}", flush=True)
         if not np.array_equal(got, want):
             fail(f"infer --model {model_name} --{label}: launches (edgeconv forward, backward, "
-                 f"vector attention) {got.tolist()}, expected {want.tolist()}")
+                 f"vector-attention forward, backward calls) {got.tolist()}, expected "
+                 f"{want.tolist()}")
         total += got
         if label == "pts":
             preds = result["preds"]
@@ -590,21 +806,6 @@ def serving_run(infer, model_name, seed, rng, dev, n_clouds, want_per_batch):
     return launches, model, batch
 
 
-def va_backward_raises(gen, dev):
-    """A backward through ``fused_vector_attention`` on the card must raise:
-    the backward kernels are not ported, and nothing may fall back to the
-    plain backward there."""
-    args = va_inputs(32, gen, dev, d=128)
-    leaves = [a.requires_grad_(True) for a in args[1:]]
-    out = vector_attention.fused_vector_attention(args[0], *leaves, 4)
-    try:
-        out.sum().backward()
-    except NotImplementedError as e:
-        print(f"vector-attention backward on the card raises NotImplementedError: {e}", flush=True)
-        return
-    fail("a backward through fused_vector_attention on the card did not raise")
-
-
 def main() -> None:
     global edgeconv, vector_attention
     if not torch.cuda.is_available():
@@ -637,7 +838,7 @@ def main() -> None:
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
 
     # 2. the build: one nvcc per source, all started together
-    sources = ("edgeconv_fwd", "edgeconv_bwd", "vecattn_fwd")
+    sources = ("edgeconv_fwd", "edgeconv_bwd", "vecattn_fwd", "vecattn_bwd")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(cuda_build.build, sources))
@@ -730,38 +931,46 @@ def main() -> None:
         va_max_abs_err = max(va_max_abs_err, compare_va(name, got, want, require_exact_idx=exact))
     del cases, args, got, want
 
+    print("vector-attention backward kernels vs plain (tolerances: staged edge tensors "
+          f"{VA_EDGE_TOL} of max(|plain|, rms) off relu flips; sums {VA_SUM_TOL} of max(sum of the "
+          f"terms' magnitudes, its mean); end to end {VA_BWD_REL_L2} relative L2; two calls "
+          "bit-identical):", flush=True)
+    va_bwd_max_abs_err = 0.0
+    cases = [(f"{name} N={n} k={k} D={D_MODEL}", n, k, D_MODEL, None) for name, n, k in VA_SHAPES]
+    cases += [(f"{name} N={n} k={k} D=128", n, k, 128, None) for name, n, k in VA_RAGGED]
+    # the lattice above: duplicate points (0, 64, 65) are each other's neighbours
+    cases.append((f"tie N={RAGGED_N} k=16 D=128", RAGGED_N, 16, 128, lat_r))
+    for name, n, k, d, xyz in cases:
+        args = va_inputs(n, gen, dev, d=d, xyz=xyz)
+        va_bwd_max_abs_err = max(va_bwd_max_abs_err, compare_va_bwd(name, args, k, gen))
+    del cases, args
+
     # 4a. the DGCNN serving slice through its entry point
     rng = np.random.default_rng(0)
-    launches, model, batch = serving_run(infer, "DGCNN", 0, rng, dev, 256, (len(SHAPES), 0, 0))
+    launches, model, batch = serving_run(infer, "DGCNN", 0, rng, dev, 256, (len(SHAPES), 0, 0, 0))
     fwd_launches = int(launches[0])
 
-    # 4b. the training slice through its entry point, then --resume
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
-        root = os.path.join(tmp, "data", "PointDA_data")
-        write_pointda_tree(root, rng)
-        _, n_fwd, n_bwd = train_run(train_dg_single_gpu.main, root, epochs=1)
-        fwd_launches += n_fwd
-        bwd_launches = n_bwd
-        ckpts = sorted(glob.glob(os.path.join(root, "output", "**", "*_checkpoint_epoch_1.pt"),
-                                 recursive=True))
-        if len(ckpts) != 1:
-            fail(f"training wrote {ckpts} as its epoch-1 checkpoint")
-        resumed, _, _ = train_run(train_dg_single_gpu.main, root, epochs=2,
-                                  extra=("--resume", ckpts[0]))
-        if [h["epoch"] for h in resumed["history"]] != [1]:
-            fail(f"--resume ran epochs {[h['epoch'] for h in resumed['history']]}, expected [1]")
-    print(f"--resume from {os.path.basename(ckpts[0])} continued at epoch 1", flush=True)
+    # 4b. the DGCNN training slice through its entry point, then --resume
+    got, _ = train_and_resume(train_dg_single_gpu.main, rng, "DGCNN")
+    fwd_launches += got[0]
+    bwd_launches = got[1]
 
-    # 4c. one DG loss on the card against the CPU plain path
+    # 4c. one DGCNN DG loss on the card against the CPU plain path
     _, cfg = parser_config(["--cfg", YAML, "--set", "Model", "DGCNN"])
-    card_against_cpu(cfg, rng)
+    card_against_cpu(cfg, rng, "DGCNN")
 
-    # 4d. the PTran serving slice through its entry point; 4e. no backward
-    # on the card until its kernels are ported
+    # 4d. the PTran serving slice through its entry point
     launches, ptran_model, ptran_batch = serving_run(infer, "PTran", 2, rng, dev, PTRAN_CLOUDS,
-                                                     (0, 0, len(VA_SHAPES)))
+                                                     (0, 0, len(VA_SHAPES), 0))
     va_launches = int(launches[2])
-    va_backward_raises(gen, dev)
+
+    # 4e. the PTran training slice through its entry point, then --resume;
+    # 4f. one PTran DG loss on the card against the CPU plain path
+    got, va_bwd_by_kernel = train_and_resume(train_dg_single_gpu.main, rng, "PTran")
+    va_launches += got[2]
+    va_bwd_calls = got[3]
+    _, ptran_cfg = parser_config(["--cfg", YAML, "--set", "Model", "PTran"])
+    card_against_cpu(ptran_cfg, rng, "PTran")
 
     # 5. times
     print(f"times (CUDA events), card: {smi}", flush=True)
@@ -865,24 +1074,67 @@ def main() -> None:
                        "PTran inference forward", pt_ms, iters=2)
     del ptran_model, ptran_batch
 
-    # the DG train step at bench.py's flagship shape: B=64 source + 64
+    # the vector-attention backward at the same five shapes, fed by one
+    # forward launch; no single PyTorch call replays the edges, takes the
+    # per-channel softmax's gradient, scatters by key and forms the four
+    # weight gradients. "launches" counts kernel launches, "calls" the
+    # backward calls they belong to.
+    va_bwd_entry = {"name": "vecattn_bwd", "route": "cuda",
+                    "source": "sug_tpu_torch/csrc/vecattn_bwd.cu",
+                    "replaces": "sug_tpu/ops/vector_attention_pallas.py:574",
+                    "launches": sum(va_bwd_by_kernel.values()), "calls": va_bwd_calls,
+                    "launches_by_kernel": va_bwd_by_kernel, "max_abs_err": va_bwd_max_abs_err,
+                    "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "operations",
+                    "library_ms": None, "shapes": []}
+    for name, n, k in VA_SHAPES:
+        args = va_inputs(n, gen, dev)
+        saved = va_bwd_saved(args, k, gen)
+        ms = timed_ms(lambda: vector_attention.vector_attention_bwd(*args, k, *saved), iters=3,
+                      warmup=1)
+        plain_ms = timed_ms(lambda: vector_attention.vector_attention_bwd_plain(*args, k, *saved),
+                            iters=2, warmup=1)
+        b_ms, b_by, nbytes, flops = va_bwd_bound(args, k)
+        print(f"  vector-attention backward {name} (B={B}, N={n}, D={D_MODEL}, k={k}): kernels "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
+              flush=True)
+        if b_by != "operations":
+            va_bwd_entry["bound_by"] = "bytes"
+        va_bwd_entry["shapes"].append({"name": name, "ms": ms, "plain_ms": plain_ms,
+                                       "bound_ms": b_ms, "bound_by": b_by})
+        va_bwd_entry["ms"] += ms
+        va_bwd_entry["plain_ms"] += plain_ms
+        va_bwd_entry["bound_ms"] += b_ms
+        if n == N_POINTS:  # where one backward call's time goes, by kernel
+            profile_device(lambda: vector_attention.vector_attention_bwd(*args, k, *saved),
+                           "vector-attention backward, level 0", ms, iters=1)
+    del args, saved
+
+    # the DG train steps at bench.py's flagship shape: B=64 source + 64
     # target clouds of 1024 points, full MSA/SDA loss, augmentation on
-    trainer = DGTrainer(cfg, model_name="DGCNN", device=dev, seed=0)
     clouds, labels = synthetic_clouds(rng, 2 * B)
     clouds = PointCloudDataset("modelnet", clouds, labels, num_points=N_POINTS).pts
     step_args = [torch.from_numpy(a).to(dev) for a in
                  (clouds[:B], labels[:B], clouds[B:], labels[B:])]
     lrs = (1e-4, 1e-4, 1e-4)
-    torch.cuda.reset_peak_memory_stats()
-    step_ms = timed_ms(lambda: trainer.train_step(*step_args, *lrs), iters=5)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"DG train step (DGCNN, B={B}+{B}, N={N_POINTS}, geo+sem soft-MMD, augmentation): "
-          f"{step_ms:.3f} ms per step, {2 * B / step_ms * 1e3:.1f} clouds/s; peak device "
-          f"memory {peak / 2**20:.1f} MiB", flush=True)
-    profile_device(lambda: trainer.train_step(*step_args, *lrs), "DG train step", step_ms)
+    for model_name, model_cfg, iters in (("DGCNN", cfg, 5), ("PTran", ptran_cfg, 3)):
+        trainer = DGTrainer(model_cfg, model_name=model_name, device=dev, seed=0,
+                            num_points=N_POINTS)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = timed_ms(lambda: trainer.train_step(*step_args, *lrs), iters=iters)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"DG train step ({model_name}, B={B}+{B}, N={N_POINTS}, geo+sem soft-MMD, "
+              f"augmentation): {step_ms:.3f} ms per step, {2 * B / step_ms * 1e3:.1f} clouds/s; "
+              f"peak device memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above "
+              "what the script held before)", flush=True)
+        profile_device(lambda: trainer.train_step(*step_args, *lrs),
+                       f"{model_name} DG train step", step_ms, iters=2)
+        del trainer
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": [entry, bwd_entry, va_entry]}))
+    print(json.dumps({"kernels": [entry, bwd_entry, va_entry, va_bwd_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -89,7 +89,7 @@ def run_dg_training(args, cfg) -> Dict:
     opt_cfg = cfg["OPTIMIZATION"]
     num_class = cfg["DATASET"]["NUM_CLASS"]
     trainer = DGTrainer(cfg, model_name=model_name, num_class=num_class, augment=True,
-                        device=device, seed=seed)
+                        device=device, seed=seed, num_points=num_points)
     trainer.criterion = make_criterion(opt_cfg, source_train_dataset, num_class, trainer.device)
     start_epoch = 0
     if args.resume:

@@ -14,9 +14,10 @@ Loss semantics, as in the JAX package:
 - sem MMD on the two heads' 256-d mid features with KL SDA weights;
 - PURE_CLS_EPOCH gating through ``mmd_on``.
 
-Config keys of paths not ported yet (GRL, ``PRECISION: bf16``, per-replica
-BN, the stacked forward, the KPConv regularizer, the CL and hard MMDs)
-raise ``NotImplementedError`` naming ROADMAP.md.
+``model_name`` is "DGCNN" or "PTran"; both run the sequential forward, as in
+the JAX package. Config keys of paths not ported yet (GRL, ``PRECISION:
+bf16``, per-replica BN, the stacked forward, the KPConv regularizer, the CL
+and hard MMDs) raise ``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from sug_tpu_torch import resolve_device
 from sug_tpu_torch.engine.optim import ThreeGroupOptimizer
 from sug_tpu_torch.losses.classification import cross_entropy, discrepancy, focal_loss
 from sug_tpu_torch.losses.mmd import PORTED_MMD, mmd_cal
-from sug_tpu_torch.models.net_mda import NetMDA, ensemble_logits
+from sug_tpu_torch.models.net_mda import BACKBONES, NetMDA, ensemble_logits
 from sug_tpu_torch.ops.augment import augment_batch
 
 
@@ -63,8 +64,9 @@ def make_criterion(opt_cfg, source_dataset=None, num_class: int = 10, device="cp
 def check_supported(cfg, model_name: str) -> None:
     """Raise for config keys whose paths the port does not have yet."""
     methods = cfg["METHODS"]
-    if model_name != "DGCNN":
-        raise _not_ported(f"Model {model_name!r} (the port trains DGCNN; the other backbones)")
+    if model_name not in BACKBONES:
+        raise _not_ported(f"Model {model_name!r} (the port trains {' and '.join(BACKBONES)}; "
+                          "the other backbones)")
     if methods.get("GRL", False):
         raise _not_ported("METHODS.GRL (the gradient-reversal layer)")
     if str(cfg.get("PRECISION", "f32")).lower() not in ("f32", "fp32", "float32"):
@@ -83,17 +85,20 @@ class DGTrainer:
     """Owns the ``NetMDA`` model on ``device``, the fused optimizer and the
     trainer's generator, which draws the augmentation, the FPS starts and
     the dropout masks. ``seed`` seeds the initial weights (drawn on the CPU,
-    so the same on every device) and the generator."""
+    so the same on every device) and the generator. ``num_points`` is the
+    cloud size a PTran model is built for (its ``point_mix``); DGCNN takes
+    any."""
 
     def __init__(self, cfg, model_name: str = "DGCNN", num_class: int = 10, criterion=None,
-                 augment: bool = True, device="cuda", seed: int = 0):
+                 augment: bool = True, device="cuda", seed: int = 0, num_points: int = 1024):
         check_supported(cfg, model_name)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.num_class = num_class
         self.criterion = criterion or cross_entropy
         self.augment = augment
-        model = NetMDA(model_name, num_class, generator=torch.Generator().manual_seed(seed))
+        model = NetMDA(model_name, num_class, generator=torch.Generator().manual_seed(seed),
+                       num_points=num_points)
         self.model = model.to(self.device)
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.params = list(self.model.named_parameters())

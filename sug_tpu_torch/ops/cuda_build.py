@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled with ``nvcc``
 for ``sm_90a`` into ``build/sug_tpu_torch/lib<name>-<hash>.so`` at the root of
-the checkout (``build/`` is git-ignored); the hash of the source names the
-library, so an edited source is rebuilt. A missing ``nvcc`` or a failed
+the checkout (``build/`` is git-ignored); the hash of the source, of the
+headers beside it (``csrc/*.cuh``) and of the flags names the library, so an
+edited source is rebuilt. A missing ``nvcc`` or a failed
 build raises with the compiler's output: there is no fallback.
 """
 
@@ -17,7 +18,7 @@ import subprocess
 import time
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Optional
 
 PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PACKAGE_DIR / "csrc"
@@ -63,8 +64,9 @@ def find_nvcc() -> str:
 
 
 def _library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    sources = [CSRC_DIR / f"{name}.cu", *sorted(CSRC_DIR.glob("*.cuh"))]
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -98,12 +100,14 @@ def load(name: str) -> ctypes.CDLL:
     return build(name).lib
 
 
-def library(name: str, error_string: str, n_ptrs: int, n_ints: int) -> ctypes.CDLL:
-    """``load(name)`` with the argument types of its launcher ``name`` (the
-    pointers, then the ints, then the stream; returns a ``cudaError_t``) and
-    of ``error_string`` (``cudaGetErrorString``) declared."""
+def library(name: str, error_string: str, n_ptrs: int, n_ints: int,
+            launcher: Optional[str] = None) -> ctypes.CDLL:
+    """``load(name)`` with the argument types of its launcher (``launcher``,
+    or ``name`` where the source has one: the pointers, then the ints, then
+    the stream; returns a ``cudaError_t``) and of ``error_string``
+    (``cudaGetErrorString``) declared."""
     lib = load(name)
-    fn = getattr(lib, name)
+    fn = getattr(lib, launcher or name)
     if fn.argtypes is None:
         # every pointer and the stream as c_void_p: an undeclared pointer
         # argument would be passed as a 32-bit int and cut

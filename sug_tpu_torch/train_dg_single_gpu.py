@@ -2,12 +2,13 @@
 ``train_dg_single_gpu.py``.
 
     python -m sug_tpu_torch.train_dg_single_gpu --source modelnet \\
-        --cfg tools/cfgs/cfgs_local/DG_unified_loss.yaml --set Model DGCNN \\
+        --cfg tools/cfgs/cfgs_local/DG_unified_loss.yaml --set Model (DGCNN|PTran) \\
         [--batch_size 64] [--num_points 1024] [--device cuda] [--resume ckpt.pt] \\
         [--fix_random_seed]
 
 ``--device cpu`` runs the kernels' plain versions on the CPU. The port
-trains ``Model DGCNN`` only; another model raises.
+trains ``Model DGCNN`` and ``Model PTran`` (built for ``--num_points``
+points); another model raises.
 """
 
 from __future__ import annotations

@@ -234,4 +234,4 @@ def test_unported_config_raises(setup):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdt.DGTrainer({**cfg, "PRECISION": "bf16"}, model_name="DGCNN", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdt.DGTrainer(cfg, model_name="PTran", device="cpu")
+        tdt.DGTrainer(cfg, model_name="Pointnet", device="cpu")

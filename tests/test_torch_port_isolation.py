@@ -94,6 +94,24 @@ def fresh_build(monkeypatch, tmp_path):
     return tmp_path
 
 
+def test_every_source_and_header_names_the_library(monkeypatch, tmp_path):
+    """The library's name hashes its source and the headers beside it, so an
+    edit to either is rebuilt; every CUDA source of the package has a name."""
+    sources = sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu"))
+    assert sources == ["edgeconv_bwd", "edgeconv_fwd", "vecattn_bwd", "vecattn_fwd"]
+    assert [p.name for p in cuda_build.CSRC_DIR.glob("*.cuh")] == ["vecattn_tile.cuh"]
+    for name in ("a.cu", "b.cu", "shared.cuh"):
+        (tmp_path / name).write_text(f"// {name}\n")
+    monkeypatch.setattr(cuda_build, "CSRC_DIR", tmp_path)
+    before = {n: cuda_build._library_path(n) for n in ("a", "b")}
+    (tmp_path / "shared.cuh").write_text("// edited\n")
+    after = {n: cuda_build._library_path(n) for n in ("a", "b")}
+    assert before["a"] != before["b"] and all(before[n] != after[n] for n in before)
+    (tmp_path / "a.cu").write_text("// a.cu edited\n")
+    assert cuda_build._library_path("a") != after["a"]
+    assert cuda_build._library_path("b") == after["b"]
+
+
 def test_missing_nvcc_raises(monkeypatch, fresh_build):
     monkeypatch.setenv("CUDA_HOME", str(fresh_build / "no-cuda"))
     monkeypatch.setenv("PATH", str(fresh_build / "empty-bin"))

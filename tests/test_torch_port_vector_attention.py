@@ -20,13 +20,12 @@ Neighbour indices must equal the reference's (the same distance formula, the
 lowest index first among ties); against the Pallas kernel, whose distances
 are 3-pass bf16 dots, the neighbour sets may differ only at near-ties.
 
+The backward has its own file, ``test_torch_port_vector_attention_bwd.py``.
 The CUDA kernel cannot run here; ``chip_smoke.py`` holds it against the
 plain version on the card.
 """
 
 from __future__ import annotations
-
-import types
 
 import jax
 import jax.numpy as jnp
@@ -169,14 +168,6 @@ def test_gradients_match_jax_grad():
             assert np.linalg.norm(leaf.grad.numpy()) < 1e-5 * scale
             continue
         assert _rel_l2(leaf.grad.numpy(), w) <= GRAD_TOL, name
-
-
-def test_cuda_backward_raises_until_slice_4():
-    """On a non-CPU tensor the backward raises instead of differentiating the
-    plain version."""
-    ctx = types.SimpleNamespace(saved_tensors=(), k=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tva.FusedVectorAttention.backward(ctx, torch.empty((1, 4, 128), device="meta"))
 
 
 def test_wrapper_validates_before_dispatch():
