@@ -24,7 +24,14 @@ ends the run with a non-zero exit; the phases, in order:
    duplicate points: the edge kernel's staged per-edge tensors against the
    plain version's, the other kernels' sums against the plain sums of those
    staged tensors, every output against the plain backward, and two calls
-   agreeing bit for bit;
+   agreeing bit for bit; the large-N kernels at B=64: min-dists at (N, M) =
+   (4096, 4096), (1024, 1024) and the ragged (3000, 2100) and (2100, 3000),
+   on identical clouds and on zero-padded ones (2048 real points and 2048
+   zeros), its (B, N) mins and the chamfer (B,) of two launches; FPS index for
+   index at N=4096 (random starts), N=16384 with npoint 512, the ragged
+   N=4100, zero-padded clouds and a lattice with duplicate points, two
+   launches bit-identical; the EdgeConv forward and backward at the N=4096
+   shapes (DGCNN blocks 1 and 4, the SA-node) and on a zero-padded cloud;
 4. the slices through their entry points, each with every launch count set
    to 0 just before it and read just after: ``sug_tpu_torch.infer``
    (``--model DGCNN --dg --batch_size 64``) on synthetic clouds and a
@@ -40,11 +47,26 @@ ends the run with a non-zero exit; the phases, in order:
    --set Model PTran`` (batch 64, 1024 points) for one epoch and ``--resume``
    for a second, 10 vector-attention forward launches and 10 backward calls
    per step, 5 forward launches per eval batch and no EdgeConv launch; then
-   one PTran ``_loss(train=True)`` at B=8 on the card against the CPU;
-5. times, with CUDA events after warm-up: each kernel shape beside its bound
-   and its plain version, the DGCNN and PTran inference forwards per batch
-   of 64, and the DGCNN and PTran DG train steps at B=64+64 with their peak
-   memory; each with a ``torch.profiler`` breakdown of device time by kernel.
+   one PTran ``_loss(train=True)`` at B=8 on the card against the CPU; then
+   the shipped config as it stands (PointNet) at ``--num_points 4096``
+   (batch 64; modelnet's raw clouds have 2048 points, so they are
+   zero-padded), one epoch and ``--resume`` for a second, 2 FPS, 2 min-dists,
+   2 EdgeConv forward and 2 backward launches per step, 1 FPS and 1 EdgeConv
+   forward per eval batch; ``infer --model Pointnet --dg --num_points
+   4096``, 1 FPS and 1 EdgeConv forward per batch of 64, its logits of 16
+   clouds against the CPU; one PointNet ``_loss(train=True)`` at B=8 and
+   N=4096 on the card against the CPU (losses, chamfer distances and
+   gradients), and again on zero-padded clouds, leaving out the BN-bias
+   channels whose padded rows sit at zero up to rounding, with the CPU's
+   gradients of the batch in reverse order as a witness. No path at 1024
+   points launches the FPS or min-dists kernel;
+5. times, with CUDA events after warm-up: each kernel shape beside its bound,
+   its plain version and, for min-dists, ``torch.cdist`` and ``amin``; the
+   DGCNN, PTran and PointNet (N=1024 and 4096) inference forwards per batch of
+   64, and the DGCNN, PTran and PointNet DG train steps at B=64+64 (DGCNN at
+   N=1024 and 4096, PTran at 1024, PointNet at 1024 and 4096) with their
+   peak memory; each with a ``torch.profiler`` breakdown of device time by
+   kernel.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -68,9 +90,11 @@ sys.path.insert(0, HERE)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-# sug_tpu_torch.ops.edgeconv and .vector_attention, imported by main() once a card is found
+# sug_tpu_torch.ops.edgeconv, .vector_attention and .geometry_kernels, imported by main()
+# once a card is found
 edgeconv = None
 vector_attention = None
+geometry_kernels = None
 
 B = 64  # the serving batch of infer.py
 N_POINTS = 1024
@@ -111,6 +135,18 @@ MAX_ARGMAX_DISAGREE = 1
 CARD_B = 8
 MAX_LOSS_REL = 1e-3
 MAX_GRAD_REL_L2 = 1e-2
+# Zero-padded clouds. The padded rows are copies of the origin, the mean of
+# a centred cloud, so a layer that maps the raw points linearly (PointNet's
+# conv1, its first T-Net's first layer) puts them at the mean of its
+# outputs, and BN sends them to its bias, 0 at the initial weights, up to
+# rounding. The relu after it then switches for 2048 rows of a cloud at once
+# on the sign of a rounding error, which each device (and each summation
+# order) rounds its own way, and that BN bias's gradient follows. So a
+# channel of a BN whose padded rows the CPU puts within PAD_ZERO_REL of its
+# rms of zero is left out of its bias's comparison; every other gradient is
+# held to MAX_GRAD_REL_L2. The CPU also takes the gradients of the batch in
+# reverse order (the same loss, summed in another order) as a witness.
+PAD_ZERO_REL = 1e-4
 # the DG training run: 26 clouds per class of modelnet train split in two
 # halves of 130, so 2 class-balanced steps of 64 per epoch; 100 test clouds
 # per dataset, 2 eval batches each
@@ -161,6 +197,41 @@ VA_SUM_TOL = 1e-5
 VA_BWD_REL_L2 = 5e-3
 # the kernels of one backward call, in launch order
 VA_BWD_KERNELS = ("edge", "wgrad", "thin", "scatter", "reduce")
+# the large-N slice: the shipped config's PointNet at --num_points 4096
+N_LARGE = 4096
+# min-dists (B, N, M) cases at B=64: the main path's, one the routing would
+# not send to the kernel, and ragged sizes no 512-point tile divides
+MIN_DISTS_SHAPES = [(4096, 4096), (1024, 1024), (3000, 2100), (2100, 3000)]
+# min-dists, kernel against plain version: each min to 1e-6 of max(|q|² +
+# max_m |s|², 1). The expanded -2·q·s + |q|² + |s|² cancels, so rounding
+# scales with the squared norms, not with the min; the kernel adds the terms
+# with FMAs in another order than cuBLAS and the plain sums (up to 2.1e-07
+# measured by this script on an H100 80GB HBM3 at 700 W, on identical
+# clouds). A chamfer is a mean of such mins in each direction.
+MIN_DIST_REL = 1e-6
+# FPS cases at B=64, (N, npoint), indices exact: the main path's, the
+# kernel's largest cloud, a ragged N
+FPS_SHAPES = [(4096, 64), (16384, 512), (4100, 64)]
+# the EdgeConv kernels at the N=4096 shapes of DGCNN blocks 1 and 4 and of
+# the SA-node (every backbone's), at B=64; the backward's check at block 4
+# runs at B=16, since the plain backward's (B, S, k, F) temporaries would take
+# some 30 GB at B=64, by count of their shapes
+LARGE_SHAPES = [SHAPES[0], SHAPES[3], SHAPES[4]]
+LARGE_BWD_B = {"block4": 16}
+# launch counters, in the order counts() returns them
+COUNTERS = ("edgeconv_fwd", "edgeconv_bwd", "vecattn_fwd", "vecattn_bwd_calls", "fps",
+            "min_dists")
+# each main path's launches (by COUNTERS) per train step and per eval or
+# serving batch of 64: per forward DGCNN runs the EdgeConv forward 5 times,
+# PTran the vector attention 5 times, PointNet the EdgeConv forward once (its
+# SA-node); from 4096 points the SA-node's FPS is one kernel launch, and above
+# 2048 the step's chamfer two min-dists launches. A step runs the source and
+# the target forward and their backward.
+MAIN_PATHS = {
+    ("DGCNN", N_POINTS): ((10, 10, 0, 0, 0, 0), (5, 0, 0, 0, 0, 0)),
+    ("PTran", N_POINTS): ((0, 0, 10, 10, 0, 0), (0, 0, 5, 0, 0, 0)),
+    ("Pointnet", N_LARGE): ((2, 2, 0, 0, 2, 2), (1, 0, 0, 0, 1, 0)),
+}
 
 
 def fail(msg: str) -> None:
@@ -181,20 +252,30 @@ def timed_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def shape_inputs(shape, gen, device, n=N_POINTS):
-    """Seeded inputs of one edgeconv_reduce call of the main path."""
+def unit_clouds(b, n, gen, device, real=None):
+    """b clouds of n points in the unit ball; with ``real``, only the first
+    ``real`` points, the rest zeros, as ``fit_num_points`` pads a short cloud."""
+    x = torch.randn((b, n, 3), generator=gen, device=device)
+    x = x / x.norm(dim=-1).amax(dim=1)[:, None, None]
+    if real is not None:
+        x[:, real:] = 0.0
+    return x
+
+
+def shape_inputs(shape, gen, device, n=N_POINTS, b=B, real=None):
+    """Seeded inputs of one edgeconv_reduce call of the main path; ``real``
+    zero-pads the cloud (C=3) past its first ``real`` points."""
     _, S, C, F, k = shape
     if C == 3:  # coordinates: clouds in the unit ball
-        kv = torch.randn((B, n, 3), generator=gen, device=device)
-        kv = kv / kv.norm(dim=-1).amax(dim=1)[:, None, None]
+        kv = unit_clouds(b, n, gen, device, real)
     else:  # features
-        kv = torch.randn((B, n, C), generator=gen, device=device)
-    u = torch.randn((B, n, F), generator=gen, device=device)
+        kv = torch.randn((b, n, C), generator=gen, device=device)
+    u = torch.randn((b, n, F), generator=gen, device=device)
     if S is None:
-        return kv, kv, u, torch.randn((B, n, F), generator=gen, device=device), k
+        return kv, kv, u, torch.randn((b, n, F), generator=gen, device=device), k
     # SA-node: offset nodes near the cloud, v = 0
-    q = (kv[:, :S] + 0.05 * torch.randn((B, S, C), generator=gen, device=device)).contiguous()
-    return q, kv, u, torch.zeros((B, S, F), device=device), k
+    q = (kv[:, :S] + 0.05 * torch.randn((b, S, C), generator=gen, device=device)).contiguous()
+    return q, kv, u, torch.zeros((b, S, F), device=device), k
 
 
 def bound(q, kv, u, v, k):
@@ -497,6 +578,55 @@ def compare_va_bwd(name, args, k, gen):
     return max_abs
 
 
+def compare_min_dists(name, q, s):
+    """The min-dists kernel against its plain version in both directions,
+    each min to MIN_DIST_REL of max(|q|² + max_m |s|², 1), and the chamfer of
+    the two launches (``chamfer_tiled``) against the plain chamfer, to twice
+    that of the clouds' largest squared norms. Returns the max |diff|."""
+    gk = geometry_kernels
+    max_err, parts = 0.0, []
+    for label, a, b in (("q->s", q, s), ("s->q", s, q)):
+        got, want = gk.min_dists(a, b), gk.min_dists_plain(a, b)
+        torch.cuda.synchronize()
+        if not torch.isfinite(got).all():
+            fail(f"min-dists {name} {label}: non-finite values")
+        scale = torch.clamp((a * a).sum(-1) + (b * b).sum(-1).amax(1)[:, None], min=1.0)
+        d = (got - want).abs()
+        rel = (d / scale).max().item()
+        max_err = max(max_err, d.max().item())
+        parts.append(f"{label} {d.max().item():.3e} (rel {rel:.3e})")
+        if rel > MIN_DIST_REL:
+            fail(f"min-dists {name} {label}: differs by {rel:.3e} of the squared norms "
+                 f"(> {MIN_DIST_REL})")
+    got = gk.chamfer_tiled(q, s)
+    want = torch.mean(gk.min_dists_plain(q, s), 1) + torch.mean(gk.min_dists_plain(s, q), 1)
+    err = (got - want).abs().max().item()
+    tol = 2 * MIN_DIST_REL * max((q * q).sum(-1).max().item() + (s * s).sum(-1).max().item(), 1.0)
+    print(f"  {name}: mins max |diff| {', '.join(parts)}; chamfer (B,) max |diff| {err:.3e} "
+          f"(|chamfer| up to {want.abs().max().item():.3e})", flush=True)
+    if err > tol:
+        fail(f"min-dists {name}: the chamfer differs by {err:.3e} (> {tol:.3e})")
+    return max(max_err, err)
+
+
+def compare_fps(name, xyz, npoint, gen):
+    """The FPS kernel against its plain version from random starts: the
+    indices equal index for index, and two launches bit-identical."""
+    gk = geometry_kernels
+    starts = torch.randint(0, xyz.shape[1], (xyz.shape[0],), generator=gen, device=xyz.device)
+    got, again = gk.fps(xyz, npoint, starts), gk.fps(xyz, npoint, starts)
+    want = gk.fps_plain(xyz, npoint, starts)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        fail(f"FPS {name}: two launches on the same inputs differ")
+    if not torch.equal(got, want):
+        rows = int((got != want).any(-1).sum())
+        fail(f"FPS {name}: indices differ from the plain loop in {rows} of {len(got)} clouds")
+    distinct = min(len(torch.unique(r)) for r in got)
+    print(f"  {name}: indices equal in all {tuple(got.shape)}; two launches bit-identical; "
+          f"at least {distinct} distinct indices per cloud", flush=True)
+
+
 def randomize_bn(model, gen):
     """Random BN running stats, scales of random sign (about a third
     negative, so the EdgeConv epilogue takes its amin branch) and biases."""
@@ -519,11 +649,11 @@ def randomize_bn(model, gen):
                 fill(m.bn_mean, m.bn_var, m.bn_scale, m.bn_bias)
 
 
-def synthetic_clouds(rng, m):
-    """m raw clouds of N_POINTS points and their labels in 10 classes:
-    boxes and ellipsoid shells whose aspect ratios depend on the class."""
+def synthetic_clouds(rng, m, n=N_POINTS):
+    """m raw clouds of n points and their labels in 10 classes: boxes and
+    ellipsoid shells whose aspect ratios depend on the class."""
     labels = np.arange(m) % 10
-    pts = rng.normal(size=(m, N_POINTS, 3))
+    pts = rng.normal(size=(m, n, 3))
     shell = labels % 2 == 0
     pts[shell] /= np.linalg.norm(pts[shell], axis=-1, keepdims=True)
     pts[~shell] = rng.uniform(-1, 1, size=pts[~shell].shape)
@@ -558,15 +688,22 @@ def profile_device(fn, what: str, wall_ms: float, iters: int = 3) -> None:
         print(f"  {ms:9.4f} ms  x{n:<5g} {key[:110]}", flush=True)
 
 
-def write_pointda_tree(root, rng):
-    """Synthetic train and test dumps of modelnet, shapenet and scannet."""
+def write_pointda_tree(root, rng, num_points=N_POINTS):
+    """Synthetic train and test dumps of modelnet, shapenet and scannet, of
+    ``num_points`` raw points each; at N_LARGE modelnet's clouds have 2048
+    points (PointDA-10's size), so the training path zero-pads them, and
+    scannet's 5000, so its ingest subsamples them."""
     from sug_tpu_torch.data.datasets import DATASET_LIST, make_synthetic_pointda
 
-    for i, name in enumerate(DATASET_LIST):
+    raw_points = dict.fromkeys(DATASET_LIST, num_points)
+    if num_points == N_LARGE:
+        raw_points.update(modelnet=2048, scannet=5000)
+    for name in DATASET_LIST:
         os.makedirs(os.path.join(root, name))
-        for j, (split, per_class) in enumerate((("train", TRAIN_PER_CLASS if name == "modelnet" else 2),
-                                                ("test", TEST_PER_CLASS))):
-            pts, labels = make_synthetic_pointda(num_per_class=per_class, num_points=N_POINTS,
+        for split, per_class in (("train", TRAIN_PER_CLASS if name == "modelnet" else 2),
+                                 ("test", TEST_PER_CLASS)):
+            pts, labels = make_synthetic_pointda(num_per_class=per_class,
+                                                 num_points=raw_points[name],
                                                  seed=int(rng.integers(1 << 30)))
             np.save(os.path.join(root, name, f"{split}_pts.npy"), pts)
             np.save(os.path.join(root, name, f"{split}_label.npy"), labels)
@@ -579,16 +716,28 @@ def reset_counts():
     vector_attention.vector_attention_bwd.calls = 0
     for kernel in VA_BWD_KERNELS:
         vector_attention.vector_attention_bwd.launches[kernel] = 0
+    geometry_kernels.fps.launches = 0
+    geometry_kernels.min_dists.launches = 0
 
 
 def counts():
-    """Since ``reset_counts``: EdgeConv forward and backward launches,
-    vector-attention forward launches and backward calls (each backward
-    kernel's own launches are in ``vector_attention_bwd.launches``)."""
+    """Since ``reset_counts``, by name (``COUNTERS``): EdgeConv forward and
+    backward launches, vector-attention forward launches and backward calls
+    (each backward kernel's own launches are in
+    ``vector_attention_bwd.launches``), FPS and min-dists launches."""
     torch.cuda.synchronize()
-    return (edgeconv.edgeconv_reduce.launches, edgeconv.edgeconv_reduce_bwd.launches,
-            vector_attention.vector_attention_fwd.launches,
-            vector_attention.vector_attention_bwd.calls)
+    return dict(zip(COUNTERS, (
+        edgeconv.edgeconv_reduce.launches, edgeconv.edgeconv_reduce_bwd.launches,
+        vector_attention.vector_attention_fwd.launches,
+        vector_attention.vector_attention_bwd.calls,
+        geometry_kernels.fps.launches, geometry_kernels.min_dists.launches)))
+
+
+def expected(model_name, num_points, steps, evals):
+    """The launch counts of ``steps`` train steps and ``evals`` eval (or
+    serving) batches of a main path, by name, from ``MAIN_PATHS``."""
+    per_step, per_eval = MAIN_PATHS[(model_name, num_points)]
+    return {k: steps * s + evals * e for k, s, e in zip(COUNTERS, per_step, per_eval)}
 
 
 def va_bwd_launches_per_call(batch):
@@ -600,18 +749,19 @@ def va_bwd_launches_per_call(batch):
     return {kernel: len(VA_SHAPES) if kernel == "reduce" else chunks for kernel in VA_BWD_KERNELS}
 
 
-def train_run(train_main, root, epochs, model_name, extra=()):
-    """One run of the training front door on the card, counting launches;
-    fails unless every loss is finite and the counts are exact: for DGCNN 10
-    EdgeConv forward and 10 backward launches per train step and 5 forward
-    ones per eval batch; for PTran 10 vector-attention forward launches and
-    10 backward calls per step (each backward kernel as
-    ``va_bwd_launches_per_call`` says), 5 forward launches per eval batch.
-    Returns the result, the four counts and the backward kernels' counts."""
+def train_run(train_main, root, epochs, model_name, num_points, extra=()):
+    """One run of the training front door on the card (``DG_unified_loss.yaml``,
+    with ``--set Model`` for DGCNN and PTran; PointNet is the config's own
+    model), counting launches; fails unless every loss is finite and the
+    counts are exactly ``MAIN_PATHS``' per step and eval batch (for PTran each
+    backward kernel as ``va_bwd_launches_per_call`` says). Returns the
+    result, the counts and the backward kernels' counts."""
     argv = ["--source", "modelnet", "--cfg", YAML, "--batch_size", str(B),
-            "--num_points", str(N_POINTS), "--device", "cuda", "--ckpt_save_interval", "1",
-            "--fix_random_seed", *extra, "--set", "Model", model_name, "DATA_ROOT", root,
+            "--num_points", str(num_points), "--device", "cuda", "--ckpt_save_interval", "1",
+            "--fix_random_seed", *extra, "--set", "DATA_ROOT", root,
             "OPTIMIZATION.NUM_EPOCHES", str(epochs)]
+    if model_name != "Pointnet":
+        argv += ["Model", model_name]
     reset_counts()
     t0 = time.perf_counter()
     result = train_main(argv)
@@ -620,76 +770,111 @@ def train_run(train_main, root, epochs, model_name, extra=()):
     seconds = time.perf_counter() - t0
     steps = sum(h["steps"] for h in result["history"])
     evals = sum(h["eval_batches"] for h in result["history"])
-    fwd, bwd = (got[0], got[1]) if model_name == "DGCNN" else (got[2], got[3])
-    print(f"train_dg_single_gpu --set Model {model_name} epochs "
-          f"{[h['epoch'] for h in result['history']]}: {steps} steps, "
-          f"{evals} eval batches in {seconds:.1f} s; launches: forward {fwd} "
-          f"({fwd - 5 * evals} in training, {(fwd - 5 * evals) / max(steps, 1):g} per step), "
-          f"backward {bwd} ({bwd / max(steps, 1):g} per step)"
-          + (f", its kernels {by_kernel}" if model_name == "PTran" else ""), flush=True)
+    per_step = {k: (v - expected(model_name, num_points, 0, evals)[k]) / max(steps, 1)
+                for k, v in got.items() if v}
+    print(f"train_dg_single_gpu {model_name} --num_points {num_points} epochs "
+          f"{[h['epoch'] for h in result['history']]}: {steps} steps, {evals} eval batches in "
+          f"{seconds:.1f} s; launches {got}, per step {per_step}"
+          + (f", backward kernels {by_kernel}" if model_name == "PTran" else ""), flush=True)
     for h in result["history"]:
         print(f"  epoch {h['epoch']}: loss_cls {h['loss_cls']:.6f} loss_geo {h['loss_geo']:.6f} "
               f"loss_sem {h['loss_sem']:.6f}, {h['ms_per_step']:.1f} ms per step incl. host",
               flush=True)
         if not all(math.isfinite(h[k]) for k in ("loss_cls", "loss_geo", "loss_sem")):
             fail(f"training epoch {h['epoch']}: non-finite loss {h}")
-    main_path = (10 * steps + 5 * evals, 10 * steps)
-    want = main_path + (0, 0) if model_name == "DGCNN" else (0, 0) + main_path
+    want = expected(model_name, num_points, steps, evals)
     per_call = va_bwd_launches_per_call(B)
     want_by_kernel = {kernel: (2 * steps * n if model_name == "PTran" else 0)
                       for kernel, n in per_call.items()}
     if steps == 0 or got != want or by_kernel != want_by_kernel:
-        fail(f"training {model_name}: launches (edgeconv forward, backward, vector-attention "
-             f"forward, backward calls) {got} and backward kernels {by_kernel} for {steps} steps "
-             f"and {evals} eval batches, expected {want} and {want_by_kernel}")
+        fail(f"training {model_name}: launches {got} and backward kernels {by_kernel} for "
+             f"{steps} steps and {evals} eval batches, expected {want} and {want_by_kernel}")
     return result, got, by_kernel
 
 
-def train_and_resume(train_main, rng, model_name):
+def train_and_resume(train_main, rng, model_name, num_points=N_POINTS):
     """The training front door for one epoch on a synthetic PointDA tree,
     then ``--resume`` from its checkpoint for a second. Returns the first
-    run's four counts and its backward kernels' counts."""
+    run's counts and its backward kernels' counts."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         root = os.path.join(tmp, "data", "PointDA_data")
-        write_pointda_tree(root, rng)
-        _, got, by_kernel = train_run(train_main, root, 1, model_name)
+        write_pointda_tree(root, rng, num_points)
+        _, got, by_kernel = train_run(train_main, root, 1, model_name, num_points)
         ckpts = sorted(glob.glob(os.path.join(root, "output", "**", "*_checkpoint_epoch_1.pt"),
                                  recursive=True))
         if len(ckpts) != 1:
             fail(f"training wrote {ckpts} as its epoch-1 checkpoint")
-        resumed, _, _ = train_run(train_main, root, 2, model_name, extra=("--resume", ckpts[0]))
+        resumed, _, _ = train_run(train_main, root, 2, model_name, num_points,
+                                  extra=("--resume", ckpts[0]))
         if [h["epoch"] for h in resumed["history"]] != [1]:
             fail(f"--resume ran epochs {[h['epoch'] for h in resumed['history']]}, expected [1]")
     print(f"--resume from {os.path.basename(ckpts[0])} continued at epoch 1", flush=True)
     return got, by_kernel
 
 
-def card_against_cpu(cfg, rng, model_name):
+def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None):
     """One ``_loss(train=True)`` at B=8 with the same weights, batch, FPS
-    starts and no dropout, on the card and on the CPU plain path."""
+    starts and no dropout, on the card and on the CPU plain path: the losses,
+    the batch's chamfer distances (the geo SDA weights' input: ``mean2one``
+    truncates 1/mean to an integer, so the weights alone can jump) and every
+    parameter's gradient. Clouds of ``raw_points`` points (``num_points``
+    when None) are zero-padded to ``num_points``, and then the gradients are
+    compared as ``PAD_ZERO_REL`` says."""
     from sug_tpu_torch.data.datasets import PointCloudDataset, make_synthetic_pointda
     from sug_tpu_torch.engine.dg_trainer import DGTrainer
+    from sug_tpu_torch.models.bn import BatchNorm
+    from sug_tpu_torch.ops.geometry import chamfer_distance
 
-    pts, labels = make_synthetic_pointda(num_per_class=2, num_points=N_POINTS, seed=7)
-    ds = PointCloudDataset("modelnet", pts, labels, num_points=N_POINTS, model=model_name)
-    fps = [torch.from_numpy(rng.integers(0, N_POINTS, CARD_B)) for _ in range(2)]
-    runs = {}
-    for dev in ("cuda", "cpu"):
+    raw_points = raw_points or num_points
+    padded = raw_points < num_points
+    pts, labels = make_synthetic_pointda(num_per_class=2, num_points=raw_points, seed=7)
+    ds = PointCloudDataset("modelnet", pts, labels, num_points=num_points, model=model_name)
+    fps = [torch.from_numpy(rng.integers(0, num_points, CARD_B)) for _ in range(2)]
+    # (device, order of the batch's clouds)
+    orders = {"cuda": ("cuda", torch.arange(CARD_B)), "cpu": ("cpu", torch.arange(CARD_B))}
+    if padded:
+        orders["cpu, batch reversed"] = ("cpu", torch.arange(CARD_B).flip(0))
+    runs, chamfer, pad_abs, rms = {}, {}, {}, {}
+
+    def record(name):  # a BN's output on the padded rows, and its rms on the real ones
+        def hook(module, args, out):
+            if out.dim() == 3 and out.shape[1] == num_points:
+                y = out.detach()
+                pad_abs[name] = torch.maximum(pad_abs.get(name, torch.zeros(())),
+                                              y[:, raw_points:].abs().amax((0, 1)))
+                rms[name] = y[:, :raw_points].square().mean((0, 1)).sqrt()
+        return hook
+
+    for label, (dev, order) in orders.items():
         tr = DGTrainer(cfg, model_name=model_name, augment=False, device=dev, seed=0,
-                       num_points=N_POINTS)
+                       num_points=num_points)
         tr.model.c1.dropout_rate = tr.model.c2.dropout_rate = 0.0
-        batch = [torch.from_numpy(a).to(dev) for a in
+        if padded and label == "cpu":
+            for name, module in tr.model.named_modules():
+                if isinstance(module, BatchNorm):
+                    module.register_forward_hook(record(name))
+        batch = [torch.from_numpy(a)[order].to(dev) for a in
                  (ds.pts[:CARD_B], ds.labels[:CARD_B].astype(np.int64),
                   ds.pts[-CARD_B:], ds.labels[-CARD_B:].astype(np.int64))]
+        starts = [f[order].to(dev) for f in fps]
+        whole = label in ("cuda", "cpu")  # losses and chamfer too, not only gradients
+        if whole:
+            chamfer[label] = chamfer_distance(batch[0], batch[2]).double().cpu()
         out = {}
-        for mmd_on in (True, False):
-            total, metrics = tr._loss(*batch, *(f.to(dev) for f in fps), mmd_on=mmd_on, train=True)
-            grads = tr.grads(total) if not mmd_on else None
+        for mmd_on in ((True, False) if whole else (False,)):
+            total, metrics = tr._loss(*batch, *starts, mmd_on=mmd_on, train=True)
+            g_all = None if mmd_on else tr.grads(total)
             out[mmd_on] = ({k: v.detach().item() for k, v in metrics.items()},
-                           None if grads is None else
+                           None if g_all is None else
                            {n: (torch.zeros_like(p) if g is None else g).double().cpu()
-                            for (n, p), g in zip(tr.params, grads)})
-        runs[dev] = out
+                            for (n, p), g in zip(tr.params, g_all)})
+        runs[label] = out
+        del tr, batch, starts
+    # unit-ball clouds: every min within MIN_DIST_REL of max(|q|² + |s|², 1) <= 2
+    chamfer_err = (chamfer["cuda"] - chamfer["cpu"]).abs().max().item()
+    if chamfer_err > 2 * 2 * MIN_DIST_REL:
+        fail(f"{model_name} card vs CPU at N={num_points}: chamfer distances differ by "
+             f"{chamfer_err:.3e} (> {2 * 2 * MIN_DIST_REL})")
     worst_loss = 0.0
     for mmd_on in (True, False):
         for k, want in runs["cpu"][mmd_on][0].items():
@@ -698,13 +883,37 @@ def card_against_cpu(cfg, rng, model_name):
             worst_loss = max(worst_loss, rel)
             if rel > MAX_LOSS_REL:
                 fail(f"{model_name} card vs CPU: {k} (mmd {mmd_on}) {got} vs {want}, {rel:.3e} relative")
-    g_card, g_cpu = runs["cuda"][False][1], runs["cpu"][False][1]
+    what = (f"{model_name} DG _loss(train=True) at B={CARD_B}, N={num_points} ({raw_points} "
+            f"real points), card vs CPU: chamfer distances within {chamfer_err:.3e} (1/mean "
+            f"{1.0 / chamfer['cpu'].mean().item():.4f}); losses within {worst_loss:.3e} relative "
+            f"(total {runs['cuda'][True][0]['loss_total']:.6f})")
+    g_cpu = runs["cpu"][False][1]
     floor = 1e-2 * max(g.norm().item() for g in g_cpu.values())
-    rel = {n: (g_card[n] - g).norm().item() / max(g.norm().item(), floor) for n, g in g_cpu.items()}
+    # the channels a BN bias's comparison leaves out (PAD_ZERO_REL)
+    zero = {f"{n}.bias": pad_abs[n] <= PAD_ZERO_REL * rms[n] for n in pad_abs}
+    zero = {n: z for n, z in zero.items() if z.any()}
+
+    def gap(grads, masked=True):  # relative L2 from the CPU's gradients, leaf by leaf
+        rel = {}
+        for n, g in g_cpu.items():
+            keep = ~zero[n] if masked and n in zero else slice(None)
+            rel[n] = (grads[n][keep] - g[keep]).norm().item() / max(g[keep].norm().item(), floor)
+        return rel
+
+    rel = gap(runs["cuda"][False][1])
     name = max(rel, key=rel.get)
-    print(f"{model_name} DG _loss(train=True) at B={CARD_B}, card vs CPU: losses within {worst_loss:.3e} "
-          f"relative (total {runs['cuda'][True][0]['loss_total']:.6f}); gradients within "
-          f"{rel[name]:.3e} relative L2 (worst {name})", flush=True)
+    print(f"{what}; gradients within {rel[name]:.3e} relative L2 (worst {name})", flush=True)
+    if padded:
+        card_all = gap(runs["cuda"][False][1], masked=False)
+        g_rev = runs["cpu, batch reversed"][False][1]
+        own, own_all = gap(g_rev), gap(g_rev, masked=False)
+        moved = max(own, key=own.get)
+        left_out = [f"{int(z.sum())} of {z.numel()} channels of {n} (padded rows within "
+                    f"{pad_abs[n[:-5]][z].max().item():.1e} of zero, rms at least "
+                    f"{rms[n[:-5]][z].min().item():.3f}; the whole leaf: card {card_all[n]:.3e}, "
+                    f"the CPU with the batch reversed {own_all[n]:.3e})" for n, z in zero.items()]
+        print(f"  left out: {'; '.join(left_out) or 'nothing'}; elsewhere the CPU's own gradients "
+              f"with the batch reversed within {own[moved]:.3e} (worst {moved})", flush=True)
     if rel[name] > MAX_GRAD_REL_L2:
         fail(f"{model_name} card vs CPU: gradient of {name} differs by {rel[name]:.3e} relative L2")
 
@@ -725,41 +934,37 @@ def check_logits(what, card, cpu, preds):
         fail(f"{what}: argmax disagrees on {max(disagree, disagree_infer)} of {len(cpu)} clouds")
 
 
-def infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds, want_per_batch):
+def infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds, num_points=N_POINTS):
     """``infer.main`` on ``--pts`` (``n_clouds`` clouds) and on a synthetic
-    ``--dataset`` (100 clouds), each with the launch counts set to 0 just
-    before and read just after; fails unless every batch of 64 took
-    ``want_per_batch`` (EdgeConv forward, backward, vector-attention forward,
-    backward calls) launches. Returns the summed counts, the raw clouds and their
-    predictions."""
-    raw, _ = synthetic_clouds(rng, n_clouds)
+    ``--dataset`` (100 clouds; at N_LARGE of 2048 points, zero-padded), each
+    with the launch counts set to 0 just before and read just after; fails
+    unless every batch of 64 took ``MAIN_PATHS``' launches per eval batch.
+    Returns the summed counts, the raw clouds and their predictions."""
+    raw, _ = synthetic_clouds(rng, n_clouds, num_points)
     pts_file = os.path.join(tmp, f"{model_name}_clouds.npy")
     np.save(pts_file, raw)
     root = os.path.join(tmp, f"{model_name}_PointDA")
     os.makedirs(os.path.join(root, "scannet"))
-    ds_pts, ds_labels = synthetic_clouds(rng, 100)
+    ds_pts, ds_labels = synthetic_clouds(rng, 100, 2048 if num_points == N_LARGE else num_points)
     np.save(os.path.join(root, "scannet", "test_pts.npy"), ds_pts)
     np.save(os.path.join(root, "scannet", "test_label.npy"), ds_labels)
     common = ["--ckpt", ckpt, "--model", model_name, "--dg", "--batch_size", str(B),
-              "--num_points", str(N_POINTS), "--device", "cuda"]
-    total = np.zeros(4, dtype=np.int64)
+              "--num_points", str(num_points), "--device", "cuda"]
+    total = dict.fromkeys(COUNTERS, 0)
     for label, extra, m in (
         ("pts", ["--pts", pts_file], n_clouds),
         ("dataset", ["--dataset", "scannet", "--split", "test", "--data_root", root], 100),
     ):
         reset_counts()
         result = infer.main(common + extra)
-        got = np.array(counts())
+        got = counts()
         batches = math.ceil(m / B)
-        want = np.array(want_per_batch) * batches
-        print(f"infer --model {model_name} --{label}: {batches} batches; launches: edgeconv "
-              f"forward {got[0]}, backward {got[1]}, vector attention forward {got[2]}, "
-              f"backward calls {got[3]}", flush=True)
-        if not np.array_equal(got, want):
-            fail(f"infer --model {model_name} --{label}: launches (edgeconv forward, backward, "
-                 f"vector-attention forward, backward calls) {got.tolist()}, expected "
-                 f"{want.tolist()}")
-        total += got
+        want = expected(model_name, num_points, 0, batches)
+        print(f"infer --model {model_name} --num_points {num_points} --{label}: {batches} "
+              f"batches; launches {got}", flush=True)
+        if got != want:
+            fail(f"infer --model {model_name} --{label}: launches {got}, expected {want}")
+        total = {k: total[k] + got[k] for k in COUNTERS}
         if label == "pts":
             preds = result["preds"]
             if preds.shape != (n_clouds,) or preds.min() < 0 or preds.max() > 9:
@@ -769,7 +974,7 @@ def infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds, want_per_batch):
     return total, raw, preds
 
 
-def serving_run(infer, model_name, seed, rng, dev, n_clouds, want_per_batch):
+def serving_run(infer, model_name, seed, rng, dev, n_clouds, num_points=N_POINTS):
     """A serving path through ``infer --model <model_name> --dg``: seeded
     weights (random BN statistics and signed scales), head biases shifted by
     minus their mean logits over 64 calibration clouds (random heads send
@@ -781,10 +986,10 @@ def serving_run(infer, model_name, seed, rng, dev, n_clouds, want_per_batch):
     from sug_tpu_torch.models.net_mda import NetMDA, ensemble_logits
 
     torch.manual_seed(seed)
-    model = NetMDA(model_name, num_points=N_POINTS)
+    model = NetMDA(model_name, num_points=num_points)
     randomize_bn(model, torch.Generator().manual_seed(seed + 1))
-    calib = PointCloudDataset("modelnet", synthetic_clouds(rng, B)[0], np.zeros(B),
-                              num_points=N_POINTS).pts
+    calib = PointCloudDataset("modelnet", synthetic_clouds(rng, B, num_points)[0], np.zeros(B),
+                              num_points=num_points).pts
     batch = torch.from_numpy(calib).to(dev)
     model = model.eval().to(dev)
     with torch.no_grad():
@@ -793,21 +998,20 @@ def serving_run(infer, model_name, seed, rng, dev, n_clouds, want_per_batch):
         model.c2.mlp3.bias -= out["logits2"].mean(0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ckpt = save_checkpoint(os.path.join(tmp, f"{model_name}.pt"), model, epoch=0)
-        launches, raw, preds = infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds,
-                                          want_per_batch)
+        launches, raw, preds = infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds, num_points)
         first = torch.from_numpy(
-            PointCloudDataset("modelnet", raw[:16], np.zeros(16), num_points=N_POINTS).pts)
+            PointCloudDataset("modelnet", raw[:16], np.zeros(16), num_points=num_points).pts)
         with torch.no_grad():
-            card = ensemble_logits(infer.load_model(model_name, ckpt, dev, N_POINTS),
+            card = ensemble_logits(infer.load_model(model_name, ckpt, dev, num_points),
                                    first.to(dev)).cpu()
             cpu = ensemble_logits(infer.load_model(model_name, ckpt, torch.device("cpu"),
-                                                   N_POINTS), first)
-    check_logits(model_name, card, cpu, preds)
+                                                   num_points), first)
+    check_logits(f"{model_name} N={num_points}", card, cpu, preds)
     return launches, model, batch
 
 
 def main() -> None:
-    global edgeconv, vector_attention
+    global edgeconv, vector_attention, geometry_kernels
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a CUDA card")
     try:
@@ -820,7 +1024,7 @@ def main() -> None:
     from sug_tpu_torch.data.datasets import PointCloudDataset
     from sug_tpu_torch.engine.dg_trainer import DGTrainer
     from sug_tpu_torch.models.net_mda import ensemble_logits
-    from sug_tpu_torch.ops import cuda_build, edgeconv, vector_attention
+    from sug_tpu_torch.ops import cuda_build, edgeconv, geometry_kernels, vector_attention
     from sug_tpu_torch.ops.geometry import farthest_point_sample
     from sug_tpu_torch.utils.config import parser_config
 
@@ -838,7 +1042,7 @@ def main() -> None:
           f"capability {torch.cuda.get_device_capability(0)}", flush=True)
 
     # 2. the build: one nvcc per source, all started together
-    sources = ("edgeconv_fwd", "edgeconv_bwd", "vecattn_fwd", "vecattn_bwd")
+    sources = ("edgeconv_fwd", "edgeconv_bwd", "vecattn_fwd", "vecattn_bwd", "chamfer_min", "fps")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:
         builds = list(pool.map(cuda_build.build, sources))
@@ -853,14 +1057,28 @@ def main() -> None:
     print("kernel vs plain (tolerance: sets agree on >= "
           f"{MIN_SET_AGREEMENT}, agreeing rows to {REL_TOL} rel of max(|plain|,1)):", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
+
+    def edgeconv_cases(bwd=False):
+        """(name, inputs) of the EdgeConv checks: the N=1024 shapes, the
+        ragged ones, the N=4096 ones (the backward's at ``LARGE_BWD_B``),
+        and zero-padded clouds at N=4096."""
+        for shape, n in [(s, N_POINTS) for s in SHAPES] + [(s, RAGGED_N) for s in RAGGED]:
+            yield shape[0], shape_inputs(shape, gen, dev, n)
+        for shape in LARGE_SHAPES:
+            b = LARGE_BWD_B.get(shape[0], B) if bwd else B
+            yield f"{shape[0]} N={N_LARGE}", shape_inputs(shape, gen, dev, N_LARGE, b=b)
+        for shape in (SHAPES[0], SHAPES[4]):
+            yield (f"{shape[0]} N={N_LARGE} zero-padded (2048 real)",
+                   shape_inputs(shape, gen, dev, N_LARGE, real=2048))
+
     max_abs_err = 0.0
-    for shape, n in [(s, N_POINTS) for s in SHAPES] + [(s, RAGGED_N) for s in RAGGED]:
-        args = shape_inputs(shape, gen, dev, n)
+    for name, args in edgeconv_cases():
         got = edgeconv.edgeconv_reduce(*args)
         want = edgeconv.edgeconv_reduce_plain(*args)
         torch.cuda.synchronize()
-        err, _ = compare(shape[0], got, want)
+        err, _ = compare(name, got, want)
         max_abs_err = max(max_abs_err, err)
+    del args, got, want
     # exact ties: integer lattice points, duplicates included, so every
     # distance is exact in f32 and both sides must pick the same indices in
     # the same order (the lowest index first among equal distances)
@@ -891,9 +1109,12 @@ def main() -> None:
     print(f"backward kernel vs plain (tolerance: {REL_TOL} of max(sum of the terms' "
           "magnitudes, 1); exact ties bit for bit; two launches bit-identical):", flush=True)
     bwd_max_abs_err = 0.0
-    for shape, n in [(s, N_POINTS) for s in SHAPES] + [(s, RAGGED_N) for s in RAGGED]:
-        args = bwd_inputs(*shape_inputs(shape, gen, dev, n), gen)
-        bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd(shape[0], args))
+    for name, args in edgeconv_cases(bwd=True):
+        args = bwd_inputs(*args, gen)
+        if args[0].shape[0] != B:
+            name += f" B={args[0].shape[0]}"
+        bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd(name, args))
+    del args
     # exact ties in a: lattice points with duplicates and integer values, so
     # tied neighbours give equal a and every sum is exact
     for name, q, kv, k in (
@@ -945,32 +1166,73 @@ def main() -> None:
         va_bwd_max_abs_err = max(va_bwd_max_abs_err, compare_va_bwd(name, args, k, gen))
     del cases, args
 
+    print(f"min-dists kernel vs plain at B={B} (tolerance: each min to {MIN_DIST_REL} of "
+          "max(|q|² + max |s|², 1); the chamfer of two launches to twice that of the largest "
+          "squared norms):", flush=True)
+    md_max_abs_err = 0.0
+    md_cases = [(f"N={n} M={m}", unit_clouds(B, n, gen, dev), unit_clouds(B, m, gen, dev))
+                for n, m in MIN_DISTS_SHAPES]
+    same = unit_clouds(B, N_LARGE, gen, dev)
+    md_cases.append((f"identical clouds N=M={N_LARGE}", same, same))
+    md_cases.append((f"zero-padded N=M={N_LARGE} (2048 real)",
+                     unit_clouds(B, N_LARGE, gen, dev, 2048), unit_clouds(B, N_LARGE, gen, dev, 2048)))
+    for name, q, s in md_cases:
+        md_max_abs_err = max(md_max_abs_err, compare_min_dists(name, q, s))
+    del md_cases, same
+
+    print(f"FPS kernel vs plain at B={B} (indices exact, two launches bit-identical):", flush=True)
+    fps_cases = [(f"N={n} npoint={npoint}", unit_clouds(B, n, gen, dev), npoint)
+                 for n, npoint in FPS_SHAPES]
+    fps_cases.append((f"zero-padded N={N_LARGE} (2048 real) npoint=64",
+                      unit_clouds(B, N_LARGE, gen, dev, 2048), 64))
+    # 13^3 lattice sites for 4096 points: duplicates, and integer distances that tie
+    fps_cases.append((f"lattice N={N_LARGE} npoint=64",
+                      torch.randint(-6, 7, (B, N_LARGE, 3), generator=gen, device=dev).float(), 64))
+    for name, xyz, npoint in fps_cases:
+        compare_fps(name, xyz, npoint, gen)
+    del fps_cases
+
     # 4a. the DGCNN serving slice through its entry point
     rng = np.random.default_rng(0)
-    launches, model, batch = serving_run(infer, "DGCNN", 0, rng, dev, 256, (len(SHAPES), 0, 0, 0))
-    fwd_launches = int(launches[0])
+    launches, model, batch = serving_run(infer, "DGCNN", 0, rng, dev, 256)
+    fwd_launches = launches["edgeconv_fwd"]
 
     # 4b. the DGCNN training slice through its entry point, then --resume
     got, _ = train_and_resume(train_dg_single_gpu.main, rng, "DGCNN")
-    fwd_launches += got[0]
-    bwd_launches = got[1]
+    fwd_launches += got["edgeconv_fwd"]
+    bwd_launches = got["edgeconv_bwd"]
 
     # 4c. one DGCNN DG loss on the card against the CPU plain path
     _, cfg = parser_config(["--cfg", YAML, "--set", "Model", "DGCNN"])
     card_against_cpu(cfg, rng, "DGCNN")
 
     # 4d. the PTran serving slice through its entry point
-    launches, ptran_model, ptran_batch = serving_run(infer, "PTran", 2, rng, dev, PTRAN_CLOUDS,
-                                                     (0, 0, len(VA_SHAPES), 0))
-    va_launches = int(launches[2])
+    launches, ptran_model, ptran_batch = serving_run(infer, "PTran", 2, rng, dev, PTRAN_CLOUDS)
+    va_launches = launches["vecattn_fwd"]
 
     # 4e. the PTran training slice through its entry point, then --resume;
     # 4f. one PTran DG loss on the card against the CPU plain path
     got, va_bwd_by_kernel = train_and_resume(train_dg_single_gpu.main, rng, "PTran")
-    va_launches += got[2]
-    va_bwd_calls = got[3]
+    va_launches += got["vecattn_fwd"]
+    va_bwd_calls = got["vecattn_bwd_calls"]
     _, ptran_cfg = parser_config(["--cfg", YAML, "--set", "Model", "PTran"])
     card_against_cpu(ptran_cfg, rng, "PTran")
+
+    # 4g. the shipped config as it stands (PointNet) at --num_points 4096,
+    # then --resume; 4h. its serving path; 4i. one PointNet DG loss at 4096
+    # points on the card against the CPU plain path
+    got, _ = train_and_resume(train_dg_single_gpu.main, rng, "Pointnet", N_LARGE)
+    fwd_launches += got["edgeconv_fwd"]
+    bwd_launches += got["edgeconv_bwd"]
+    fps_launches, md_launches = got["fps"], got["min_dists"]
+    launches, pn_model, pn_batch = serving_run(infer, "Pointnet", 4, rng, dev, 2 * B, N_LARGE)
+    fwd_launches += launches["edgeconv_fwd"]
+    fps_launches += launches["fps"]
+    _, pn_cfg = parser_config(["--cfg", YAML])
+    if pn_cfg["Model"] != "Pointnet":
+        fail(f"{YAML} configures Model {pn_cfg['Model']!r}, not Pointnet")
+    card_against_cpu(pn_cfg, rng, "Pointnet", N_LARGE)
+    card_against_cpu(pn_cfg, rng, "Pointnet", N_LARGE, raw_points=2048)
 
     # 5. times
     print(f"times (CUDA events), card: {smi}", flush=True)
@@ -1110,31 +1372,113 @@ def main() -> None:
                            "vector-attention backward, level 0", ms, iters=1)
     del args, saved
 
-    # the DG train steps at bench.py's flagship shape: B=64 source + 64
-    # target clouds of 1024 points, full MSA/SDA loss, augmentation on
-    clouds, labels = synthetic_clouds(rng, 2 * B)
-    clouds = PointCloudDataset("modelnet", clouds, labels, num_points=N_POINTS).pts
-    step_args = [torch.from_numpy(a).to(dev) for a in
-                 (clouds[:B], labels[:B], clouds[B:], labels[B:])]
-    lrs = (1e-4, 1e-4, 1e-4)
-    for model_name, model_cfg, iters in (("DGCNN", cfg, 5), ("PTran", ptran_cfg, 3)):
-        trainer = DGTrainer(model_cfg, model_name=model_name, device=dev, seed=0,
-                            num_points=N_POINTS)
+    # the large-N kernels at the shapes of the PointNet step at 4096 points:
+    # one chamfer of two B=64 clouds (two min-dists launches), one SA-node FPS
+    gk = geometry_kernels
+    q, s = unit_clouds(B, N_LARGE, gen, dev), unit_clouds(B, N_LARGE, gen, dev)
+    ms = timed_ms(lambda: (gk.min_dists(q, s), gk.min_dists(s, q)), iters=20)
+    plain_ms = timed_ms(lambda: (gk.min_dists_plain(q, s), gk.min_dists_plain(s, q)), iters=5)
+
+    def library_chamfer():
+        d = torch.cdist(q, s)  # (B, N, M) Euclidean distances
+        return torch.amin(d, dim=2).square(), torch.amin(d, dim=1).square()
+
+    library_ms = timed_ms(library_chamfer, iters=5)
+    # per call: 7 operations per (query, source) pair, what the function needs
+    # (|s|² - 2·q·s in 3 FMAs, an FMA counting two, and a min; |q|² added
+    # once per query after the min); q and s read once, the (B, N) mins
+    # written once
+    flops = 2 * 7.0 * B * N_LARGE * N_LARGE
+    nbytes = 2 * 4.0 * B * (3 * N_LARGE + 3 * N_LARGE + N_LARGE)
+    t_ops, t_bytes = flops / F32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    md_entry = {"name": "min_dists", "route": "cuda", "source": "sug_tpu_torch/csrc/chamfer_min.cu",
+                "replaces": "sug_tpu/ops/pallas_kernels.py:84", "launches": md_launches,
+                "max_abs_err": md_max_abs_err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": max(t_ops, t_bytes),
+                "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "library_ms": library_ms}
+    print(f"  min-dists, one chamfer (two launches, B={B}, N=M={N_LARGE}): kernel {ms:.4f} ms "
+          f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, torch.cdist + amin over "
+          f"each axis (three calls and two squares, the (B, N, M) matrix materialised) "
+          f"{library_ms:.4f} ms, bound {md_entry['bound_ms']:.4f} ms by {md_entry['bound_by']} "
+          f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+    del q, s
+
+    npoint = 64
+    xyz = unit_clouds(B, N_LARGE, gen, dev)
+    starts = torch.randint(0, N_LARGE, (B,), generator=gen, device=dev)
+    # the kernel alone, through its launcher; the wrapper adds its start
+    # check, which reads the starts back to the host
+    ms = timed_ms(lambda: gk._launch_fps(xyz, npoint, starts), iters=50)
+    wrapper_ms = timed_ms(lambda: gk.fps(xyz, npoint, starts), iters=50)
+    plain_ms = timed_ms(lambda: gk.fps_plain(xyz, npoint, starts), iters=5)
+    # per point and step: 3 subtractions, 3 multiplies, 2 adds, a min and a
+    # compare; xyz and the starts read once, the indices written once. Neither
+    # binds in practice: each of the npoint steps ends in a block-wide arg-max
+    # the next step needs.
+    flops = 10.0 * B * N_LARGE * npoint
+    nbytes = 12.0 * B * N_LARGE + 8.0 * B + 8.0 * B * npoint
+    t_ops, t_bytes = flops / F32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    fps_entry = {"name": "fps", "route": "cuda", "source": "sug_tpu_torch/csrc/fps.cu",
+                 "replaces": "sug_tpu/ops/pallas_kernels.py:161", "launches": fps_launches,
+                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                 "bound_ms": max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
+    print(f"  FPS (B={B}, N={N_LARGE}, npoint={npoint}): kernel {ms:.4f} ms ({ms / npoint * 1e3:.2f} "
+          f"us per dependent step), {wrapper_ms:.4f} ms through the wrapper with its start check, "
+          f"plain {plain_ms:.4f} ms, bound {fps_entry['bound_ms']:.4f} ms "
+          f"by {fps_entry['bound_by']} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
+    del xyz, starts
+
+    # the PointNet inference forward per batch of 64 at 4096 and at 1024 points
+    pn_batch_1024 = torch.from_numpy(PointCloudDataset(
+        "modelnet", synthetic_clouds(rng, B)[0], np.zeros(B), num_points=N_POINTS).pts).to(dev)
+    for n, pc in ((N_LARGE, pn_batch), (N_POINTS, pn_batch_1024)):
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        step_ms = timed_ms(lambda: trainer.train_step(*step_args, *lrs), iters=iters)
+        with torch.no_grad():
+            fwd_ms = timed_ms(lambda: ensemble_logits(pn_model, pc), iters=10)
         peak = torch.cuda.max_memory_allocated()
-        print(f"DG train step ({model_name}, B={B}+{B}, N={N_POINTS}, geo+sem soft-MMD, "
+        print(f"forward (NetMDA Pointnet eval, ensemble logits), B={B}, N={n}: {fwd_ms:.3f} ms per "
+              f"batch, {B / fwd_ms * 1e3:.1f} clouds/s; peak device memory {peak / 2**20:.1f} MiB "
+              f"({(peak - held) / 2**20:.1f} MiB above what the script held before)", flush=True)
+        with torch.no_grad():
+            profile_device(lambda: ensemble_logits(pn_model, pc), f"Pointnet inference forward N={n}",
+                           fwd_ms)
+    del pn_model, pn_batch, pn_batch_1024
+
+    # the DG train steps: B=64 source + 64 target clouds, full MSA/SDA loss,
+    # augmentation on; bench.py's flagship shape (N=1024) for each model, and
+    # the large-N slice's N=4096 for PointNet (the shipped config) and DGCNN
+    step_args = {}
+    for n in (N_POINTS, N_LARGE):
+        clouds, labels = synthetic_clouds(rng, 2 * B, n)
+        clouds = PointCloudDataset("modelnet", clouds, labels, num_points=n).pts
+        step_args[n] = [torch.from_numpy(a).to(dev) for a in
+                        (clouds[:B], labels[:B], clouds[B:], labels[B:])]
+    lrs = (1e-4, 1e-4, 1e-4)
+    for model_name, model_cfg, iters, n in (("DGCNN", cfg, 5, N_POINTS),
+                                            ("PTran", ptran_cfg, 3, N_POINTS),
+                                            ("Pointnet", pn_cfg, 5, N_LARGE),
+                                            ("Pointnet", pn_cfg, 5, N_POINTS),
+                                            ("DGCNN", cfg, 3, N_LARGE)):
+        trainer = DGTrainer(model_cfg, model_name=model_name, device=dev, seed=0, num_points=n)
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step_ms = timed_ms(lambda: trainer.train_step(*step_args[n], *lrs), iters=iters)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"DG train step ({model_name}, B={B}+{B}, N={n}, geo+sem soft-MMD, "
               f"augmentation): {step_ms:.3f} ms per step, {2 * B / step_ms * 1e3:.1f} clouds/s; "
               f"peak device memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above "
               "what the script held before)", flush=True)
-        profile_device(lambda: trainer.train_step(*step_args, *lrs),
-                       f"{model_name} DG train step", step_ms, iters=2)
+        profile_device(lambda: trainer.train_step(*step_args[n], *lrs),
+                       f"{model_name} DG train step N={n}", step_ms, iters=2)
         del trainer
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": [entry, bwd_entry, va_entry, va_bwd_entry]}))
+    print(json.dumps({"kernels": [entry, bwd_entry, va_entry, va_bwd_entry, md_entry, fps_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

@@ -14,10 +14,11 @@ Loss semantics, as in the JAX package:
 - sem MMD on the two heads' 256-d mid features with KL SDA weights;
 - PURE_CLS_EPOCH gating through ``mmd_on``.
 
-``model_name`` is "DGCNN" or "PTran"; both run the sequential forward, as in
-the JAX package. Config keys of paths not ported yet (GRL, ``PRECISION:
-bf16``, per-replica BN, the stacked forward, the KPConv regularizer, the CL
-and hard MMDs) raise ``NotImplementedError`` naming ROADMAP.md.
+``model_name`` is "DGCNN", "PTran" or "Pointnet"; each runs the sequential
+forward, as in the JAX package. Config keys of paths not ported yet (GRL,
+``PRECISION: bf16``, per-replica BN, the stacked forward, the KPConv
+regularizer, the CL and hard MMDs) raise ``NotImplementedError`` naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ def check_supported(cfg, model_name: str) -> None:
     """Raise for config keys whose paths the port does not have yet."""
     methods = cfg["METHODS"]
     if model_name not in BACKBONES:
-        raise _not_ported(f"Model {model_name!r} (the port trains {' and '.join(BACKBONES)}; "
+        raise _not_ported(f"Model {model_name!r} (the port trains {', '.join(BACKBONES)}; "
                           "the other backbones)")
     if methods.get("GRL", False):
         raise _not_ported("METHODS.GRL (the gradient-reversal layer)")
@@ -86,8 +87,8 @@ class DGTrainer:
     trainer's generator, which draws the augmentation, the FPS starts and
     the dropout masks. ``seed`` seeds the initial weights (drawn on the CPU,
     so the same on every device) and the generator. ``num_points`` is the
-    cloud size a PTran model is built for (its ``point_mix``); DGCNN takes
-    any."""
+    cloud size a PTran model is built for (its ``point_mix``); DGCNN and
+    Pointnet take any."""
 
     def __init__(self, cfg, model_name: str = "DGCNN", num_class: int = 10, criterion=None,
                  augment: bool = True, device="cuda", seed: int = 0, num_points: int = 1024):

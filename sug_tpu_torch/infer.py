@@ -4,7 +4,7 @@ Loads a twin-head DG model, classifies clouds with the ensemble
 ``(logits1 + logits2) / 2``, reports accuracy on a dataset split or predicts
 an ``.npy`` of clouds, and optionally saves the predictions.
 
-    python -m sug_tpu_torch.infer --ckpt model.pt --model (DGCNN | PTran) --dg \\
+    python -m sug_tpu_torch.infer --ckpt model.pt --model (DGCNN | PTran | Pointnet) --dg \\
         (--dataset scannet --split test | --pts clouds.npy) \\
         [--batch_size 64] [--num_points 1024] [--device cuda] [--save preds.npy]
 
@@ -34,7 +34,7 @@ from sug_tpu_torch.models.net_mda import NetMDA, ensemble_logits
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ckpt", required=True, help="port checkpoint (.pt) or JAX variables (.npz)")
-    ap.add_argument("--model", default="DGCNN", help="DGCNN or PTran")
+    ap.add_argument("--model", default="DGCNN", help="DGCNN, PTran or Pointnet")
     ap.add_argument("--dg", action="store_true", help="DG twin-head checkpoint (ensembled)")
     ap.add_argument("--dataset", default=None, help="scannet/shapenet/modelnet")
     ap.add_argument("--split", default="test")

@@ -3,7 +3,8 @@
 Dense layers act on the last axis (channels-last), as flax's ``nn.Dense``.
 Submodule names follow the JAX tree, with flax's auto-names renamed
 (``Dense_0`` -> ``dense0``, ``Dense_1`` -> ``dense1``, ``BatchNorm_0`` ->
-``bn``, ``LayerNorm_0`` -> ``ln``; see ``utils/jax_bridge.py``).
+``bn``, ``LayerNorm_0`` -> ``ln``, ``ConvBN_i`` -> ``convbni``, ``FCLayer_i``
+-> ``fci``; see ``utils/jax_bridge.py``).
 """
 
 from __future__ import annotations
@@ -71,6 +72,31 @@ class FCLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return activation(self.ln(self.dense0(x)), self.act, negative_slope=0.2)
+
+
+class TransformNet(nn.Module):
+    """The T-Net: (B, N, C) -> (B, K, K), a K x K alignment matrix biased
+    toward the identity. ConvBN 64 -> 128 -> 1024, a max over the points,
+    FCLayer 512 -> 256 and a Dense to K·K, plus the identity.
+
+    Only the JAX module's ``reduce_neighbors=False`` form: the edge variant,
+    which maxes over a neighbour axis, is built by no JAX model (PointNet
+    is the only user of ``TransformNet``)."""
+
+    def __init__(self, in_features: int, K: int):
+        super().__init__()
+        self.K = K
+        self.convbn0 = ConvBN(in_features, 64)
+        self.convbn1 = ConvBN(64, 128)
+        self.convbn2 = ConvBN(128, 1024)
+        self.fc0 = FCLayer(1024, 512)
+        self.fc1 = FCLayer(512, 256)
+        self.dense0 = nn.Linear(256, K * K)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.convbn2(self.convbn1(self.convbn0(x)))
+        x = self.dense0(self.fc1(self.fc0(torch.amax(x, dim=1))))
+        return x.reshape(-1, self.K, self.K) + torch.eye(self.K, dtype=x.dtype, device=x.device)
 
 
 class CALayer(nn.Module):

@@ -1,6 +1,6 @@
 """NetMDA, the twin-head DG model: counterpart of
-``sug_tpu/models/net_mda.py`` for ``model_name`` "DGCNN" and "PTran",
-sequential forward only, in eval and train mode.
+``sug_tpu/models/net_mda.py`` for ``model_name`` "DGCNN", "PTran" and
+"Pointnet", sequential forward only, in eval and train mode.
 
 The stacked both-domains forward, the gradient-reversal layer and the other
 backbones come with later slices (ROADMAP.md, "Modules to port").
@@ -16,10 +16,13 @@ from torch import nn
 from sug_tpu_torch.models.dgcnn import DGCNNGenerator
 from sug_tpu_torch.models.heads import ClassifierHead
 from sug_tpu_torch.models.layers import CALayer, flax_init_
+from sug_tpu_torch.models.pointnet import PointNetGenerator
 from sug_tpu_torch.models.ptran import PointTransformerGenerator
 
 DOMAINS = (None, "source", "target", "both")
-BACKBONES = ("DGCNN", "PTran")
+BACKBONES = ("DGCNN", "PTran", "Pointnet")
+# the classifier-head variant of each backbone
+HEAD_VARIANTS = {"DGCNN": "dgcnn", "PTran": "ptran", "Pointnet": "relu"}
 
 
 class NetMDA(nn.Module):
@@ -27,16 +30,16 @@ class NetMDA(nn.Module):
     attention ``attention_s``/``attention_t``.
 
     ``forward`` returns a dict: logits1, logits2 (B, num_class); sem1, sem2
-    (B, 256); global_feat (B, 1024 for DGCNN, 512 for PTran); node_flat
-    (B, 64*64), flattened node-major; node_offset (None for PTran); and
-    node_attn (domain 'source' or 'target') or node_attn and node_attn_t
-    (domain 'both').
+    (B, 256); global_feat (B, 1024 for DGCNN and Pointnet, 512 for PTran);
+    node_flat (B, 64*64), flattened node-major; node_offset (None for
+    PTran); and node_attn (domain 'source' or 'target') or node_attn and
+    node_attn_t (domain 'both').
 
     ``num_points`` sizes PTran's ``point_mix`` (flax sizes it at the first
-    call); DGCNN takes any cloud size. ``fps_start`` (B,) starts the first
-    FPS (index 0 when None); ``generator`` draws the heads' dropout masks in
-    train mode. The constructor's ``generator`` (CPU) draws the initial
-    Dense kernels.
+    call); DGCNN and Pointnet take any cloud size. ``fps_start`` (B,) starts
+    the first FPS (index 0 when None); ``generator`` draws the heads' dropout
+    masks in train mode. The constructor's ``generator`` (CPU) draws the
+    initial Dense kernels.
     """
 
     def __init__(self, model_name: str = "DGCNN", num_class: int = 10,
@@ -50,11 +53,12 @@ class NetMDA(nn.Module):
         self.model_name = model_name
         if model_name == "DGCNN":
             self.g = DGCNNGenerator()
+        elif model_name == "Pointnet":
+            self.g = PointNetGenerator()
         else:
             self.g = PointTransformerGenerator(num_points)
-        variant = "dgcnn" if model_name == "DGCNN" else "ptran"
-        self.c1 = ClassifierHead(num_class, variant)
-        self.c2 = ClassifierHead(num_class, variant)
+        self.c1 = ClassifierHead(num_class, HEAD_VARIANTS[model_name])
+        self.c2 = ClassifierHead(num_class, HEAD_VARIANTS[model_name])
         self.attention_s = CALayer()
         self.attention_t = CALayer()
         flax_init_(self, generator)

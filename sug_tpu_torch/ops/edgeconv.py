@@ -27,7 +27,7 @@ from typing import Tuple
 import torch
 
 from sug_tpu_torch.ops import cuda_build
-from sug_tpu_torch.ops.geometry import index_points, smallest_k, square_distance
+from sug_tpu_torch.ops.geometry import cross_knn_indices, index_points
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -38,7 +38,7 @@ def edgeconv_reduce_plain(q, kv, u, v, k: int) -> Outputs:
     """The plain PyTorch version: the counterpart of
     ``edgeconv_reduce_reference``, with a query set that may differ from the
     key set."""
-    idx = smallest_k(square_distance(q, kv), k)  # (B, S, k)
+    idx = cross_knn_indices(q, kv, k)  # (B, S, k)
     a = index_points(u, idx) + v[:, :, None, :]  # (B, S, k, F)
     return (
         torch.amax(a, dim=2),

@@ -4,6 +4,14 @@ Channels-last ``(B, N, C)`` layout throughout, as in the JAX package. Every
 k-nearest selection breaks distance ties by the lowest index, as
 ``lax.top_k`` does: the distances are sorted with ``torch.sort(stable=True)``
 and the first k taken, because ``torch.topk`` guarantees no tie order.
+
+Large clouds route as the JAX package routes them (``chamfer_is_tiled``,
+``fps_is_fused``, ``knn_is_blockwise``): the chamfer and FPS to the wrappers
+of ``ops/geometry_kernels.py``, which launch the CUDA kernels on the card
+and run the same plain code as below on the CPU, and the kNN (a cloud's own
+and, for the plain EdgeConv, a query set's among the cloud) to the plain
+``knn_blockwise``. The JAX package routes the first two only on a TPU, and
+FPS only where ``npoint % 8 == 0``, a Mosaic tiling limit the port drops.
 """
 
 from __future__ import annotations
@@ -11,6 +19,28 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+CHAMFER_TILED_ABOVE = 2048  # points, in either cloud
+FPS_FUSED_FROM = 4096  # points
+KNN_BLOCKWISE_ABOVE = 4096  # points
+
+
+def chamfer_is_tiled(n: int, m: int) -> bool:
+    """Whether the chamfer of N- and M-point clouds takes ``chamfer_tiled``
+    (no (B, N, M) matrix), as ``geometry.py:297`` of the JAX package."""
+    return n > CHAMFER_TILED_ABOVE or m > CHAMFER_TILED_ABOVE
+
+
+def fps_is_fused(n: int) -> bool:
+    """Whether FPS of an N-point cloud takes the one-kernel ``fps``, as
+    ``geometry.py:175`` of the JAX package (without its npoint condition)."""
+    return n >= FPS_FUSED_FROM
+
+
+def knn_is_blockwise(n: int) -> bool:
+    """Whether the kNN of an N-point cloud takes ``knn_blockwise``, as
+    ``geometry.py:85`` of the JAX package."""
+    return n > KNN_BLOCKWISE_ABOVE
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -33,8 +63,38 @@ def smallest_k(dist: torch.Tensor, k: int) -> torch.Tensor:
 
 def knn_indices(x: torch.Tensor, k: int) -> torch.Tensor:
     """``(B, N, C) -> (B, N, k)`` int64 indices of each point's k nearest
-    neighbours, the point itself included."""
-    return smallest_k(square_distance(x, x), k)
+    neighbours, the point itself included; large clouds go blockwise."""
+    return cross_knn_indices(x, x, k)
+
+
+def cross_knn_indices(q: torch.Tensor, kv: torch.Tensor, k: int) -> torch.Tensor:
+    """``(B, S, C), (B, N, C) -> (B, S, k)`` int64 indices of each query's k
+    nearest keys, ascending, the lowest index first among equal distances;
+    above 4096 keys by ``knn_blockwise``, never the (B, S, N) matrix."""
+    if knn_is_blockwise(kv.shape[1]):
+        return knn_blockwise(q, k, keys=kv)
+    return smallest_k(square_distance(q, kv), k)
+
+
+def knn_blockwise(x: torch.Tensor, k: int, tile: int = 1024,
+                  keys: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``knn_indices`` (with ``keys``, the k nearest ``keys`` of each point of
+    ``x``) as a scan over key tiles with a running top-k merge: memory
+    O(B·S·(k + tile)), never (B, S, N). A stable sort over ``[best, tile]``
+    keeps the lowest index first among equal distances, since the running
+    best holds lower indices than the tile."""
+    keys = x if keys is None else keys
+    B, S = x.shape[:2]
+    best_d = torch.full((B, S, k), float("inf"), dtype=x.dtype, device=x.device)
+    best_i = torch.zeros((B, S, k), dtype=torch.long, device=x.device)
+    for t0 in range(0, keys.shape[1], tile):
+        src = keys[:, t0:t0 + tile]
+        idx = torch.arange(t0, t0 + src.shape[1], device=x.device).expand(B, S, -1)
+        cat_d = torch.cat([best_d, square_distance(x, src)], dim=-1)
+        cat_i = torch.cat([best_i, idx], dim=-1)
+        pos = smallest_k(cat_d, k)
+        best_d, best_i = torch.gather(cat_d, -1, pos), torch.gather(cat_i, -1, pos)
+    return best_i
 
 
 def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -51,25 +111,14 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def farthest_point_sample(
     xyz: torch.Tensor, npoint: int, start_idx: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
-    """Farthest point sampling ``(B, N, 3) -> (B, npoint)`` int64.
+    """Farthest point sampling ``(B, N, 3) -> (B, npoint)`` int64, starting at
+    ``start_idx`` (B,) of each cloud, or at index 0 when it is None: the
+    plain loop ``fps_plain``, or from 4096 points the wrapper ``fps``."""
+    from sug_tpu_torch.ops import geometry_kernels
 
-    A plain loop, like the JAX package's below N=4096, starting at
-    ``start_idx`` (B,) of each cloud, or at index 0 when it is None.
-    ``torch.argmax`` returns the first maximal index, as ``jnp.argmax`` does.
-    """
-    B, N, _ = xyz.shape
-    if start_idx is None:
-        farthest = torch.zeros(B, dtype=torch.long, device=xyz.device)
-    else:
-        farthest = start_idx.to(device=xyz.device, dtype=torch.long)
-    dists = torch.full((B, N), 1e10, dtype=torch.float32, device=xyz.device)
-    centroids = torch.empty((B, npoint), dtype=torch.long, device=xyz.device)
-    for i in range(npoint):
-        centroids[:, i] = farthest
-        centroid = index_points(xyz, farthest[:, None])  # (B, 1, 3)
-        dists = torch.minimum(dists, torch.sum((xyz - centroid) ** 2, dim=-1))
-        farthest = torch.argmax(dists, dim=-1)
-    return centroids
+    if fps_is_fused(xyz.shape[1]):
+        return geometry_kernels.fps(xyz, npoint, start_idx)
+    return geometry_kernels.fps_plain(xyz, npoint, start_idx)
 
 
 def query_ball_point(
@@ -116,8 +165,12 @@ def three_nn_interpolate(
 def chamfer_distance(pc1: torch.Tensor, pc2: torch.Tensor, per_sample: bool = True) -> torch.Tensor:
     """Bidirectional chamfer distance, ``(B, N, 3), (B, M, 3)`` -> (B,)
     ``mean_n min_m d + mean_m min_n d`` of squared distances, or its mean
-    over the batch. The plain (B, N, M) version, as the JAX package runs it
-    up to 2048 points."""
+    over the batch. Up to 2048 points the plain (B, N, M) version, above
+    them ``chamfer_tiled``."""
+    if chamfer_is_tiled(pc1.shape[1], pc2.shape[1]):
+        from sug_tpu_torch.ops.geometry_kernels import chamfer_tiled
+
+        return chamfer_tiled(pc1, pc2, per_sample)
     sqrdists = square_distance(pc1, pc2)  # (B, N, M)
     per = torch.mean(torch.amin(sqrdists, dim=2), dim=1) + torch.mean(torch.amin(sqrdists, dim=1), dim=1)
     return per if per_sample else torch.mean(per)

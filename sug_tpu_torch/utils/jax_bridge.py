@@ -1,11 +1,12 @@
 """Carry the JAX package's weights into the port.
 
 ``state_dict_from_jax(variables)`` takes the ``{"params", "batch_stats"}``
-tree of ``sug_tpu``'s ``NetMDA`` (DGCNN or PTran), as nested dicts of numpy
-arrays, and returns the port's ``state_dict``. The port's modules are named
-after the JAX tree (PTran's ``g/backbone/transformer1/w_qs``,
-``g/backbone/td0/mlp0/Dense_0``, ``g/point_mix``, ...), so the bridge is a
-rename plus a transpose:
+tree of ``sug_tpu``'s ``NetMDA`` (DGCNN, PTran or Pointnet), as nested dicts
+of numpy arrays, and returns the port's ``state_dict``. The port's modules
+are named after the JAX tree (PTran's ``g/backbone/transformer1/w_qs``,
+``g/backbone/td0/mlp0/Dense_0``, ``g/point_mix``; PointNet's
+``g/trans_net1/ConvBN_0``, ``g/conv1`` ... ``g/conv5``, ``g/bn1``,
+``g/sa_node``), so the bridge is a rename plus a transpose:
 
 - module path: kept, with flax's auto-names renamed (``AUTONAMES``);
 - leaf: ``kernel`` -> ``weight`` (flax Dense ``(in, out)`` transposed to
@@ -25,7 +26,9 @@ import torch
 from torch import nn
 
 COLLECTIONS = ("params", "batch_stats")
-AUTONAMES = {"Dense_0": "dense0", "Dense_1": "dense1", "BatchNorm_0": "bn", "LayerNorm_0": "ln"}
+AUTONAMES = {"Dense_0": "dense0", "Dense_1": "dense1", "BatchNorm_0": "bn", "LayerNorm_0": "ln",
+             "ConvBN_0": "convbn0", "ConvBN_1": "convbn1", "ConvBN_2": "convbn2",
+             "FCLayer_0": "fc0", "FCLayer_1": "fc1"}
 LEAVES = {"kernel": "weight", "scale": "weight", "mean": "running_mean", "var": "running_var"}
 
 

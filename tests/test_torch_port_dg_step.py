@@ -1,6 +1,7 @@
 """The DG training step of the port (``sug_tpu_torch.engine.dg_trainer``)
-against ``sug_tpu.engine.dg_trainer.DGTrainer`` on the CPU, on DGCNN with
-``bench.py``'s flagship config (geo + sem soft-MMD with chamfer and KL
+against ``sug_tpu.engine.dg_trainer.DGTrainer`` on the CPU, for DGCNN and for
+Pointnet (every test runs once per model), with ``bench.py``'s flagship
+config (geo + sem soft-MMD with chamfer and KL
 sample weights, target loss) and the DLSA ``ClassWeighting`` criterion, the
 weights bridged from the JAX package's init (BN stats randomised, a third of
 the BN scales negative). B=4 source + 4 target clouds of 128 points.
@@ -30,7 +31,13 @@ the MMD kernel's amplified rounding) steps either way and the two runs
 drift apart: steps 2 and 3 hold the total loss to 2e-3 and each term to
 3e-2 (measured 6.4e-4 and 1.95e-2, the classification term, which is small
 beside the MMD terms). Parameters are compared through the gradient and
-optimizer tests instead.
+optimizer tests instead. PointNet's steps take the shipped config's learning
+rate, 1e-4, where DGCNN's take 1e-3: PointNet max-pools every channel over
+the points, so the gradient of a channel flows through one point, and a
+weight that one step moved by ±lr on a rounding-level gradient switches
+those points at the next. At 1e-3 the two runs part by 14% in the
+classification term at step 3; at 1e-4 they hold the same bounds (measured
+5.6e-4 and 5.6e-3).
 """
 
 from __future__ import annotations
@@ -64,20 +71,22 @@ LOSS_RTOL = 1e-4
 REL_L2 = 2e-2
 METRICS = ("loss_cls", "loss_adv", "loss_geo", "loss_sem", "loss_total")
 OPT_CFG = {"CLS_LOSS": "ClassWeighting", "CLS_WEIGHT": "DLSA", "DLSA_Q": 0.4}
+STEP_LR = {"DGCNN": 1e-3, "Pointnet": 1e-4}
 
 
-@pytest.fixture(scope="module")
-def setup():
-    """The JAX trainer, its randomised variables, the batches, and the
-    datasets the DLSA weights come from (class counts 1..10, so no two
-    weights are equal)."""
+@pytest.fixture(scope="module", params=["DGCNN", "Pointnet"])
+def setup(request):
+    """The JAX trainer of one model, its randomised variables, the batches,
+    and the datasets the DLSA weights come from (class counts 1..10, so no
+    two weights are equal)."""
     cfg = bench._make_cfg()
+    model_name = request.param
     pts, labels = make_synthetic_pointda(num_per_class=10, num_points=N, seed=3)
     keep = np.concatenate([np.nonzero(labels == c)[0][:c + 1] for c in range(10)])
-    jds = JDataset("modelnet", pts[keep], labels[keep], num_points=N, model="DGCNN")
-    tds = PointCloudDataset("modelnet", pts[keep], labels[keep], num_points=N, model="DGCNN")
+    jds = JDataset("modelnet", pts[keep], labels[keep], num_points=N, model=model_name)
+    tds = PointCloudDataset("modelnet", pts[keep], labels[keep], num_points=N, model=model_name)
     jcrit = jdt.make_criterion(OPT_CFG, jds)
-    jtr = jdt.DGTrainer(cfg, model_name="DGCNN", criterion=jcrit, augment=False)
+    jtr = jdt.DGTrainer(cfg, model_name=model_name, criterion=jcrit, augment=False)
     variables = jax.jit(lambda: jtr.model.init(
         {"params": jax.random.key(0), "dropout": jax.random.key(1)},
         jnp.zeros((B, N, 3)), True, domain="both"))()
@@ -88,9 +97,10 @@ def setup():
 
 
 def _port_trainer(setup):
-    cfg, _, variables, _, tds = setup
+    cfg, jtr, variables, _, tds = setup
     crit = tdt.make_criterion(OPT_CFG, tds)
-    tr = tdt.DGTrainer(cfg, model_name="DGCNN", criterion=crit, augment=False, device="cpu")
+    tr = tdt.DGTrainer(cfg, model_name=jtr.model_name, criterion=crit, augment=False,
+                       device="cpu")
     load_jax_variables(tr.model, variables)
     return tr
 
@@ -209,7 +219,7 @@ def test_three_train_steps(setup, monkeypatch):
     state = jdt.DGTrainState(params=variables["params"], batch_stats=variables["batch_stats"],
                              opt_state=jtr.optimizer.init(variables["params"]),
                              step=jnp.zeros((), jnp.int32))
-    lrs = (1e-3, 1e-3, 1e-3)
+    lrs = (STEP_LR[jtr.model_name],) * 3
     tb = _torch_batch(batch)
     for i in range(3):
         key = jax.random.key(100 + i)
@@ -234,4 +244,4 @@ def test_unported_config_raises(setup):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdt.DGTrainer({**cfg, "PRECISION": "bf16"}, model_name="DGCNN", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdt.DGTrainer(cfg, model_name="Pointnet", device="cpu")
+        tdt.DGTrainer(cfg, model_name="Pointnet2", device="cpu")

@@ -98,7 +98,8 @@ def test_every_source_and_header_names_the_library(monkeypatch, tmp_path):
     """The library's name hashes its source and the headers beside it, so an
     edit to either is rebuilt; every CUDA source of the package has a name."""
     sources = sorted(p.stem for p in cuda_build.CSRC_DIR.glob("*.cu"))
-    assert sources == ["edgeconv_bwd", "edgeconv_fwd", "vecattn_bwd", "vecattn_fwd"]
+    assert sources == ["chamfer_min", "edgeconv_bwd", "edgeconv_fwd", "fps", "vecattn_bwd",
+                       "vecattn_fwd"]
     assert [p.name for p in cuda_build.CSRC_DIR.glob("*.cuh")] == ["vecattn_tile.cuh"]
     for name in ("a.cu", "b.cu", "shared.cuh"):
         (tmp_path / name).write_text(f"// {name}\n")

@@ -206,7 +206,7 @@ def test_trainer_builds_the_model_for_num_points(setup):
     with pytest.raises(ValueError, match="built for 1024 points"):
         tdt.DGTrainer(cfg, model_name="PTran", device="cpu").eval_logits(torch.zeros(1, N, 3))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdt.DGTrainer(cfg, model_name="Pointnet", device="cpu")
+        tdt.DGTrainer(cfg, model_name="Pointnet2", device="cpu")
 
 
 @pytest.fixture(scope="module")

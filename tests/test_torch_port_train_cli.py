@@ -3,7 +3,8 @@ the CPU: one epoch of DGCNN DG training with ``DG_unified_loss.yaml`` on a
 tiny synthetic PointDA tree (clouds of 128 points), then ``--resume`` from
 its checkpoint, which continues at the next epoch with the optimizer's step
 counts carried over. A model the port does not train raises. PTran's run
-through the same door is in ``test_torch_port_ptran_train.py``."""
+through the same door is in ``test_torch_port_ptran_train.py``, PointNet's
+(the shipped config as it stands) in ``test_torch_port_pointnet.py``."""
 
 from __future__ import annotations
 
@@ -69,6 +70,6 @@ def test_train_one_epoch_then_resume(data_root):
 
 def test_other_models_raise(data_root):
     argv = _argv(data_root, 1)
-    argv[argv.index("DGCNN")] = "Pointnet"
+    argv[argv.index("DGCNN")] = "Pointnet2"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_dg_single_gpu.main(argv)
