@@ -10,7 +10,11 @@ ends the run with a non-zero exit; the phases, in order:
 1. card: ``nvidia-smi`` name and power limit, and the torch device name;
 2. build: every CUDA source of the main paths, compiled from the checkout
    (one ``nvcc`` each, started together), with its seconds and the
-   ``-Xptxas -v`` register and shared-memory lines;
+   ``-Xptxas -v`` register and shared-memory lines; then the HMMA
+   (tensor-core) instructions that ``cuobjdump -sass`` finds in the three
+   kernels whose D×D products run as 3xTF32 ``mma.sync`` (the
+   vector-attention forward and the backward's edge and wgrad kernels),
+   failing where there are none or where the toolkit has no ``cuobjdump``;
 3. kernels against their plain PyTorch versions on the card: the EdgeConv
    forward and backward at the shapes the DGCNN twin-head forward and
    backward give them at B=64, at ragged sizes (N=1000, S=61), on exact-tie
@@ -61,7 +65,12 @@ ends the run with a non-zero exit; the phases, in order:
    gradients of the batch in reverse order as a witness. No path at 1024
    points launches the FPS or min-dists kernel;
 5. times, with CUDA events after warm-up: each kernel shape beside its bound,
-   its plain version and, for min-dists, ``torch.cdist`` and ``amin``; the
+   its plain version and, for min-dists, ``torch.cdist`` and ``amin``; for
+   the vector attention at each PTran level its achieved TFLOP/s, its bound
+   with the D×D products on the tensor cores as 3xTF32 beside the f32 bound
+   outside them, the weight bytes the design asks of L2 (a count from the
+   grid and the cluster size, not a reading of the card), and each backward
+   kernel's share of the backward; the
    DGCNN, PTran and PointNet (N=1024 and 4096) inference forwards per batch of
    64, and the DGCNN, PTran and PointNet DG train steps at B=64+64 (DGCNN at
    N=1024 and 4096, PTran at 1024, PointNet at 1024 and 4096) with their
@@ -117,6 +126,7 @@ RAGGED = [
 # H100 SXM peaks (NVIDIA data sheet, at a 700 W power limit)
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
+TF32_FLOP_PER_S = 495e12  # dense, on the tensor cores
 # kernel against plain version: share of rows whose neighbour sets must agree
 # (near-tied distances may order differently: the two sum C products in
 # different orders), and the tolerance on agreeing rows: 1e-5 relative to
@@ -197,6 +207,14 @@ VA_SUM_TOL = 1e-5
 VA_BWD_REL_L2 = 5e-3
 # the kernels of one backward call, in launch order
 VA_BWD_KERNELS = ("edge", "wgrad", "thin", "scatter", "reduce")
+# the blocks of a cluster that share each weight chunk (kCluster in
+# csrc/vecattn_tile.cuh), for the count of weight bytes asked of L2
+VA_CLUSTER = 2
+# the kernels whose D×D products run on the tensor cores (3xTF32 mma.sync):
+# (name in the SASS, source)
+TENSOR_CORE_KERNELS = (("vecattn_fwd_kernel", "vecattn_fwd"),
+                       ("vecattn_bwd_edge_kernel", "vecattn_bwd"),
+                       ("vecattn_bwd_wgrad_kernel", "vecattn_bwd"))
 # the large-N slice: the shipped config's PointNet at --num_points 4096
 N_LARGE = 4096
 # min-dists (B, N, M) cases at B=64: the main path's, one the routing would
@@ -232,6 +250,20 @@ MAIN_PATHS = {
     ("PTran", N_POINTS): ((0, 0, 10, 10, 0, 0), (0, 0, 5, 0, 0, 0)),
     ("Pointnet", N_LARGE): ((2, 2, 0, 0, 2, 2), (1, 0, 0, 0, 1, 0)),
 }
+
+
+def hmma_count(cuobjdump, library, kernel):
+    """HMMA (tensor-core) instructions in the SASS of every instance of
+    ``kernel`` (a substring of the mangled name) in ``library``."""
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    count, inside = 0, False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and "HMMA" in line:
+            count += 1
+    return count
 
 
 def fail(msg: str) -> None:
@@ -399,18 +431,43 @@ def va_inputs(n, gen, device, d=D_MODEL, xyz=None):
             rnd(d, d, scale=d**-0.5), rnd(d, scale=0.1)]
 
 
+def va_weight_l2_bytes(b, n, d, products):
+    """The weight bytes one call of a vector-attention kernel asks of L2 by
+    its design, a count and not a reading of the card: each cluster of the
+    grid (B clouds × query tiles of 1024/D queries, rounded up to whole
+    clusters of ``VA_CLUSTER``) reads each of its ``products`` (D, D)
+    weights once, and shares every chunk among its blocks."""
+    tiles = math.ceil(n * d / 1024)
+    clusters = b * math.ceil(tiles / VA_CLUSTER)
+    return clusters * products * d * d * 4
+
+
+def ops_bounds(nbytes, dd_flops, other_flops):
+    """(bound_ms, bound_by, f32_ms): the larger of the bytes over HBM
+    bandwidth and the operations' time. The D×D products run on the tensor
+    cores as 3×TF32 (three TF32 products each, at the TF32 peak) and the
+    rest in f32 outside them; ``f32_ms`` is the operations' time were all
+    of them f32 outside the tensor cores, as the kernels ran before."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (3.0 * dd_flops / TF32_FLOP_PER_S + other_flops / F32_FLOP_PER_S) * 1e3
+    f32_ms = (dd_flops + other_flops) / F32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), f32_ms
+
+
 def va_bound(args, k):
-    """(bound_ms, bound_by, bytes, flops) of one vector-attention call: the
-    inputs (xyz, q, key, val, weights) read once and out, m, l, idx written
-    once, against B·N·(2·N·C + k·(2·C·D + 6·D²)) f32 operations: the
-    distances, the C->D layer and the three D×D products per edge."""
+    """(bound_ms, bound_by, bytes, flops, f32_bound_ms) of one
+    vector-attention call: the inputs (xyz, q, key, val, weights) read once
+    and out, m, l, idx written once, against B·N·(2·N·C + k·(2·C·D + 6·D²))
+    operations: the distances, the C->D layer and the three D×D products
+    per edge, these on the tensor cores (``ops_bounds``)."""
     xyz, q = args[0], args[1]
     Bq, n, c = xyz.shape
     d = q.shape[-1]
     nbytes = sum(t.numel() * 4 for t in args) + 3 * Bq * n * d * 4 + Bq * n * k * 4
-    flops = float(Bq) * n * (2.0 * n * c + k * (2.0 * c * d + 6.0 * d * d))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+    dd_flops = float(Bq) * n * k * 6.0 * d * d
+    other = float(Bq) * n * (2.0 * n * c + k * 2.0 * c * d)
+    b_ms, b_by, f32_ms = ops_bounds(nbytes, dd_flops, other)
+    return b_ms, b_by, nbytes, dd_flops + other, max(f32_ms, nbytes / HBM_BYTES_PER_S * 1e3)
 
 
 def compare_va(name, got, want, require_exact_idx=False):
@@ -441,21 +498,23 @@ def compare_va(name, got, want, require_exact_idx=False):
 
 
 def va_bwd_bound(args, k):
-    """(bound_ms, bound_by, bytes, flops) of one vector-attention backward:
-    the forward's inputs, idx, m, l, out and dout read once and the eleven
-    gradients written once, against B·N·k·(18·D² + 4·C·D) f32 operations: per
-    edge three D×D products to replay the forward, three back through the
-    chain and three outer products for the weight gradients, and the C->D
-    layer and its gradient."""
+    """(bound_ms, bound_by, bytes, flops, f32_bound_ms) of one
+    vector-attention backward: the forward's inputs, idx, m, l, out and dout
+    read once and the eleven gradients written once, against B·N·k·(18·D² +
+    4·C·D) operations: per edge three D×D products to replay the forward,
+    three back through the chain and three outer products for the weight
+    gradients, on the tensor cores, and the C->D layer and its gradient
+    (``ops_bounds``)."""
     xyz, q = args[0], args[1]
     Bq, n, c = xyz.shape
     d = q.shape[-1]
     weights = sum(t.numel() * 4 for t in args[4:])
     nbytes = (sum(t.numel() * 4 for t in args[:4]) + weights + Bq * n * k * 4
               + 4 * Bq * n * d * 4 + 3 * Bq * n * d * 4 + weights)
-    flops = float(Bq) * n * k * (18.0 * d * d + 4.0 * c * d)
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+    dd_flops = float(Bq) * n * k * 18.0 * d * d
+    other = float(Bq) * n * k * 4.0 * c * d
+    b_ms, b_by, f32_ms = ops_bounds(nbytes, dd_flops, other)
+    return b_ms, b_by, nbytes, dd_flops + other, max(f32_ms, nbytes / HBM_BYTES_PER_S * 1e3)
 
 
 def va_bwd_saved(args, k, gen):
@@ -1052,6 +1111,16 @@ def main() -> None:
         for line in built.log.splitlines():
             if any(w in line for w in ("registers", "bytes smem", "spill", "Function properties")):
                 print(f"  ptxas: {line.strip()}", flush=True)
+    # the tensor-core kernels: HMMA instructions in their machine code
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+    if not os.path.exists(cuobjdump):
+        fail(f"{cuobjdump} not found: the tensor-core kernels' SASS cannot be checked")
+    built = dict(zip(sources, builds))
+    for kernel, source in TENSOR_CORE_KERNELS:
+        n_hmma = hmma_count(cuobjdump, built[source].path, kernel)
+        print(f"  sass: {kernel} ({source}.cu): {n_hmma} HMMA instructions", flush=True)
+        if n_hmma == 0:
+            fail(f"{kernel}: no HMMA instruction in its SASS: not on the tensor cores")
 
     # 3. kernels against plain versions
     print("kernel vs plain (tolerance: sets agree on >= "
@@ -1302,16 +1371,20 @@ def main() -> None:
                 "source": "sug_tpu_torch/csrc/vecattn_fwd.cu",
                 "replaces": "sug_tpu/ops/vector_attention_pallas.py:523",
                 "launches": va_launches, "max_abs_err": va_max_abs_err, "ms": 0.0,
-                "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "operations", "library_ms": None,
-                "shapes": []}
+                "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "operations",
+                "library_ms": None, "shapes": []}
     for name, n, k in VA_SHAPES:
         args = va_inputs(n, gen, dev)
         ms = timed_ms(lambda: vector_attention.vector_attention_fwd(*args, k), iters=5)
         plain_ms = timed_ms(lambda: vector_attention.vector_attention_fwd_plain(*args, k), iters=3)
-        b_ms, b_by, nbytes, flops = va_bound(args, k)
+        b_ms, b_by, nbytes, flops, f32_ms = va_bound(args, k)
+        l2 = va_weight_l2_bytes(B, n, D_MODEL, 3)
         print(f"  vector attention {name} (B={B}, N={n}, D={D_MODEL}, k={k}): kernel {ms:.4f} ms "
-              f"({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by "
-              f"{b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+              f"({flops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.1%} of the 3xTF32 bound), plain "
+              f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} with 3xTF32 tensor cores "
+              f"({f32_ms:.4f} ms in f32 outside them; {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP); weight bytes asked of L2 by the design (a count, "
+              f"not measured) {l2 / 1e9:.3f} GB", flush=True)
         if b_by != "operations":
             va_entry["bound_by"] = "bytes"
         va_entry["shapes"].append({"name": name, "ms": ms, "plain_ms": plain_ms,
@@ -1355,11 +1428,14 @@ def main() -> None:
                       warmup=1)
         plain_ms = timed_ms(lambda: vector_attention.vector_attention_bwd_plain(*args, k, *saved),
                             iters=2, warmup=1)
-        b_ms, b_by, nbytes, flops = va_bwd_bound(args, k)
+        b_ms, b_by, nbytes, flops, f32_ms = va_bwd_bound(args, k)
+        l2 = va_weight_l2_bytes(B, n, D_MODEL, 6)  # the edge kernel's six products
         print(f"  vector-attention backward {name} (B={B}, N={n}, D={D_MODEL}, k={k}): kernels "
-              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s), plain {plain_ms:.4f} ms, bound "
-              f"{b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
-              flush=True)
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.1%} of the 3xTF32 bound), "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} with 3xTF32 tensor cores "
+              f"({f32_ms:.4f} ms in f32 outside them; {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP); weight bytes asked of L2 by the edge kernel's design "
+              f"(a count, not measured) {l2 / 1e9:.3f} GB", flush=True)
         if b_by != "operations":
             va_bwd_entry["bound_by"] = "bytes"
         va_bwd_entry["shapes"].append({"name": name, "ms": ms, "plain_ms": plain_ms,
@@ -1367,9 +1443,9 @@ def main() -> None:
         va_bwd_entry["ms"] += ms
         va_bwd_entry["plain_ms"] += plain_ms
         va_bwd_entry["bound_ms"] += b_ms
-        if n == N_POINTS:  # where one backward call's time goes, by kernel
-            profile_device(lambda: vector_attention.vector_attention_bwd(*args, k, *saved),
-                           "vector-attention backward, level 0", ms, iters=1)
+        # where one backward call's time goes, by kernel
+        profile_device(lambda: vector_attention.vector_attention_bwd(*args, k, *saved),
+                       f"vector-attention backward, {name}", ms, iters=1)
     del args, saved
 
     # the large-N kernels at the shapes of the PointNet step at 4096 points:

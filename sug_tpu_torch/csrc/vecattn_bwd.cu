@@ -17,34 +17,43 @@
 //   dWg2 = relu_gᵀ·dzs;  dWg1 = att_inᵀ·dh_g;  dWd2 = relu_dᵀ·dpos;  dWd1 = deltaᵀ·dh_d
 //   dbg2 = Σ dzs;  dbg1 = Σ dh_g;  dbd2 = Σ dpos;  dbd1 = Σ dh_d   (over every edge)
 // Tensors as in vecattn_fwd.cu (f32, contiguous, 16-byte aligned, weights in
-// the (in, out) layout, D a multiple of 128 up to 512, k <= 16); idx (B,N,k)
-// int32; xyz gets no gradient.
+// the (in, out) layout, the (D, D) ones and their transposes with rows padded
+// to D + 8 floats, D = 128, 256 or 512, k <= 16); idx (B,N,k) int32; xyz
+// gets no gradient.
 //
-// What bounds it on an H100. Operations: B·N·k·(18·D² + 4·C·D) f32 — per edge
+// What bounds it on an H100. Operations: B·N·k·(18·D² + 4·C·D) — per edge
 // three D×D products to replay the forward, three for the chain back and
 // three outer products for the weight gradients; at PTran's level 0 (B=64,
-// N=1024, D=512, k=16) 4.95 TFLOP, 74 ms at 67 TFLOP/s outside the tensor
+// N=1024, D=512, k=16) 4.95 TFLOP. The D×D products run on the tensor cores
+// as 3×TF32 (vecattn_tile.cuh), so their bound is 3 × 4.95 TFLOP at 495
+// TFLOP/s, 30 ms, against 74 ms for the same work in f32 outside the tensor
 // cores. Bytes: 10 (B,N,D) tensors, xyz, idx and the weights, about 1.35 GB
-// there, under 1 ms. So f32 arithmetic bounds it.
+// there, under 1 ms. The nine staged planes below add 19.3 GB of writes per
+// call at level 0 and at least as many bytes of reads, some 11.5 ms at 3.35
+// TB/s, which the bound does not count (they are the design's, not the
+// function's).
 //
 // Design: five kernels, no float atomics, every sum in a fixed order, so two
 // launches on the same inputs agree bit for bit. The caller walks the clouds
 // in chunks, so that the staged tensors below stay small.
 // 1. `edge`: the forward kernel's block (vecattn_tile.cuh: TQ queries × 16
-//    slots, tiles G and P in shared memory) replays the three forward
-//    products from idx, then runs the three products of the chain back with
-//    the transposed weights (transposed once by the caller). A thread keeps
-//    the two relu masks of its 16 × 4 tile as 64 bits each. It owns all 16
-//    slots of its query, so dq comes from its registers. Slots past k repeat
-//    slot 0 with alpha = 0, so all their cotangents are exactly zero. It
-//    writes dq, and stages per edge row, in global memory, the operands of
-//    what follows: relu_d, att_in, relu_g, dzs, dh_g, datt, dvpos, dpos, dh_d
-//    (rows, D) and [delta, 1] (rows, 4), rows = clouds·N·16.
+//    slots, tiles G and P in shared memory, clusters of kCluster blocks
+//    sharing every weight chunk) replays the three forward products from
+//    idx, then runs the three products of the chain back with the
+//    transposed weights (transposed once by the caller); all six on the
+//    tensor cores. Between products a thread (query, 4 channels) keeps the
+//    two relu masks of its 16 × 4 tile as 64 bits each. It owns all 16 slots
+//    of its query, so dq is its sum over the slots in ascending order. Slots
+//    past k repeat slot 0 with alpha = 0, so all their cotangents are
+//    exactly zero. It writes dq, and stages per edge row, in global memory,
+//    the operands of what follows: relu_d, att_in, relu_g, dzs, dh_g, datt,
+//    dvpos, dpos, dh_d (rows, D) and [delta, 1] (rows, 4), rows =
+//    clouds·N·16.
 // 2. `wgrad`: dWg2, dWg1, dWd2 as split-K products AᵀG of the staged
-//    operands, a 128 × 128 tile and one K share per block, 8 × 8 values per
-//    thread, operands through a two-stage cp.async ring. The blocks of the
-//    first tile row also sum G's columns: the three bias gradients. Each
-//    block writes its own partial.
+//    operands on the tensor cores (3×TF32 mma.sync), a 128 × 128 tile and
+//    one K share per block, operands through a cp.async ring. The
+//    blocks of the first tile row also sum G's columns: the three bias
+//    gradients. Each block writes its own partial.
 // 3. `thin`: dWd1 and dbd1 together as [delta, 1]ᵀ·dh_d, a (4, D) result,
 //    split over row shares, a partial per block.
 // 4. `scatter`: dkey and dval. Each key gets a warp that scans its cloud's
@@ -63,7 +72,9 @@ enum Plane { kReluD = 0, kAttIn, kReluG, kDzs, kDhG, kDatt, kDvpos, kDpos, kDhD,
 
 constexpr int kTile = 128;      // wgrad: output tile edge
 constexpr int kTileK = 16;      // wgrad: rows per pipeline stage
-constexpr int kMicro = 8;       // wgrad: values per thread and tile edge
+constexpr int kTileLd = kTile + 8;  // wgrad: padded stage row, so fragment loads do not conflict
+constexpr int kWgStages = 3;    // wgrad: pipeline stages
+constexpr size_t kWgSmem = sizeof(float) * 2 * kWgStages * kTileK * kTileLd;
 constexpr int kScatterWarps = 16;
 
 __device__ __forceinline__ float4 add4(float4 a, float4 b) {
@@ -76,12 +87,13 @@ __device__ __forceinline__ unsigned positive_bits(float4 v) {
          (v.w > 0.0f ? 8u : 0u);
 }
 
-__device__ __forceinline__ float4 masked(const float (&a)[kCols], unsigned bits) {
-  return make_float4(bits & 1u ? a[0] : 0.0f, bits & 2u ? a[1] : 0.0f, bits & 4u ? a[2] : 0.0f,
-                     bits & 8u ? a[3] : 0.0f);
+__device__ __forceinline__ float4 masked(float4 a, unsigned bits) {
+  return make_float4(bits & 1u ? a.x : 0.0f, bits & 2u ? a.y : 0.0f, bits & 4u ? a.z : 0.0f,
+                     bits & 8u ? a.w : 0.0f);
 }
 
-__global__ void __launch_bounds__(256, 1)
+template <int D>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
                         const float* __restrict__ key, const float* __restrict__ val,
                         const float* __restrict__ wd1, const float* __restrict__ bd1,
@@ -93,25 +105,27 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
                         const float* __restrict__ m_in, const float* __restrict__ l_in,
                         const float* __restrict__ out, const float* __restrict__ dout,
                         float* __restrict__ dq, float* __restrict__ stage,
-                        float* __restrict__ delta1, int N, int D, int k, float scale,
-                        size_t plane) {
-  extern __shared__ __align__(16) float smem[];
-  const int tq = kRowsPerBlock / D;
-  const int E = tq * kMaxK;
-  float* P = smem;                       // [E][D] pos, then dvpos
-  float* G = smem + (size_t)E * D;       // [E][D] the next product's input
-  float* wbuf = smem + 2 * (size_t)E * D;  // [2][kChunk][D]
+                        float* __restrict__ delta1, int N, int k, float scale, size_t plane) {
+  using T = Tile<D>;
+  constexpr int tq = T::kTq, ld = T::kLd;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* P = reinterpret_cast<float*>(smem_raw + kBarrierBytes);  // [E][ld] pos, then dvpos
+  float* G = P + T::kActFloats;          // [E][ld] the next product's input
+  float* wbuf = G + T::kActFloats;       // [kStages][kChunk][D + kWPad]
+
+  WeightPipe pipe = pipe_init(smem_raw, wbuf);
+  pipe_prologue<D>(pipe, wd2);
 
   const int b = blockIdx.y;
-  const int per_query = D / kCols;
+  constexpr int per_query = D / kCols;
   const int ql = threadIdx.x / per_query;
   const int col0 = (threadIdx.x % per_query) * kCols;
   const int n = blockIdx.x * tq + ql;
   const bool valid = n < N;
-  const int n_ld = valid ? n : N - 1;    // idle queries of a ragged tile
+  const int n_ld = valid ? n : N - 1;    // idle queries of a ragged or idle tile
   const float* xyzb = xyz + (size_t)b * N * 3;
-  float* Pq = P + (size_t)ql * kMaxK * D;
-  float* Gq = G + (size_t)ql * kMaxK * D;
+  float* Pq = P + (size_t)ql * kMaxK * ld + col0;
+  float* Gq = G + (size_t)ql * kMaxK * ld + col0;
   const size_t row_n = ((size_t)b * N + n_ld) * D;
   // this thread's part of staged row r of its query
   const size_t srow = ((size_t)b * N + n_ld) * kMaxK;
@@ -139,7 +153,7 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
       h.y = fmaxf(fmaf(d2, w2.y, fmaf(d1, w1.y, d0 * w0.y)) + bias.y, 0.0f);
       h.z = fmaxf(fmaf(d2, w2.z, fmaf(d1, w1.z, d0 * w0.z)) + bias.z, 0.0f);
       h.w = fmaxf(fmaf(d2, w2.w, fmaf(d1, w1.w, d0 * w0.w)) + bias.w, 0.0f);
-      st4(Gq + r * D + col0, h);
+      st4(Gq + r * ld, h);
       STAGE(kReluD, r, h);
       mask_d |= (unsigned long long)positive_bits(h) << (4 * r);
       if (valid && col0 == 0) st4(delta1 + (srow + r) * 4, make_float4(d0, d1, d2, 1.0f));
@@ -147,36 +161,36 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
   }
   __syncthreads();
 
-  float acc[kMaxK][kCols];
-
   // P = pos = G·Wd2 + bd2;  G = att_in = (q_n - key_i) + pos
-  rows_times_weights(acc, Gq, wd2, wbuf, D, col0);
+  rows_times_weights<D>(pipe, G, wd2, wg1, G);
   {
     const float4 bias = ld4(bd2 + col0);
     const float4 qv = ld4(q + row_n + col0);
 #pragma unroll
     for (int r = 0; r < kMaxK; ++r) {
       const float4 kv = ld4(key + ((size_t)b * N + nbr[r]) * D + col0);
-      const float4 p = make_float4(acc[r][0] + bias.x, acc[r][1] + bias.y,
-                                   acc[r][2] + bias.z, acc[r][3] + bias.w);
+      const float4 acc = ld4(Gq + r * ld);
+      const float4 p = make_float4(acc.x + bias.x, acc.y + bias.y, acc.z + bias.z,
+                                   acc.w + bias.w);
       const float4 a = make_float4((qv.x - kv.x) + p.x, (qv.y - kv.y) + p.y,
                                    (qv.z - kv.z) + p.z, (qv.w - kv.w) + p.w);
-      st4(Pq + r * D + col0, p);
-      st4(Gq + r * D + col0, a);
+      st4(Pq + r * ld, p);
+      st4(Gq + r * ld, a);
       STAGE(kAttIn, r, a);
     }
   }
   __syncthreads();
 
   // G = relu_g = relu(G·Wg1 + bg1)
-  rows_times_weights(acc, Gq, wg1, wbuf, D, col0);
+  rows_times_weights<D>(pipe, G, wg1, wg2, G);
   {
     const float4 bias = ld4(bg1 + col0);
 #pragma unroll
     for (int r = 0; r < kMaxK; ++r) {
-      const float4 h = make_float4(fmaxf(acc[r][0] + bias.x, 0.0f), fmaxf(acc[r][1] + bias.y, 0.0f),
-                                   fmaxf(acc[r][2] + bias.z, 0.0f), fmaxf(acc[r][3] + bias.w, 0.0f));
-      st4(Gq + r * D + col0, h);
+      const float4 acc = ld4(Gq + r * ld);
+      const float4 h = make_float4(fmaxf(acc.x + bias.x, 0.0f), fmaxf(acc.y + bias.y, 0.0f),
+                                   fmaxf(acc.z + bias.z, 0.0f), fmaxf(acc.w + bias.w, 0.0f));
+      st4(Gq + r * ld, h);
       STAGE(kReluG, r, h);
       mask_g |= (unsigned long long)positive_bits(h) << (4 * r);
     }
@@ -185,7 +199,7 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
 
   // z = (G·Wg2 + bg2)·s;  alpha = exp(z - m)/l;  P = dvpos = alpha·dout;
   // G = dzs = dvpos·((val_i + pos) - out)·s
-  rows_times_weights(acc, Gq, wg2, wbuf, D, col0);
+  rows_times_weights<D>(pipe, G, wg2, wg2t, G);
   {
     const float4 b4 = ld4(bg2 + col0), m4 = ld4(m_in + row_n + col0);
     const float4 l4 = ld4(l_in + row_n + col0), o4 = ld4(out + row_n + col0);
@@ -196,20 +210,22 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
 #pragma unroll
     for (int r = 0; r < kMaxK; ++r) {
       const float4 v4 = ld4(val + ((size_t)b * N + nbr[r]) * D + col0);
-      const float4 p4 = ld4(Pq + r * D + col0);
+      const float4 p4 = ld4(Pq + r * ld);
+      const float4 z4 = ld4(Gq + r * ld);
       const float vp[kCols] = {v4.x + p4.x, v4.y + p4.y, v4.z + p4.z, v4.w + p4.w};
+      const float acc[kCols] = {z4.x, z4.y, z4.z, z4.w};
       float dv[kCols], dz[kCols];
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const float z = (acc[r][c] + bias[c]) * scale;
+        const float z = (acc[c] + bias[c]) * scale;
         const float alpha = r < k ? expf(z - mx[c]) / ls[c] : 0.0f;
         dv[c] = alpha * go[c];
         dz[c] = dv[c] * (vp[c] - o[c]) * scale;
       }
       const float4 dv4 = make_float4(dv[0], dv[1], dv[2], dv[3]);
       const float4 dz4 = make_float4(dz[0], dz[1], dz[2], dz[3]);
-      st4(Pq + r * D + col0, dv4);
-      st4(Gq + r * D + col0, dz4);
+      st4(Pq + r * ld, dv4);
+      st4(Gq + r * ld, dz4);
       STAGE(kDvpos, r, dv4);
       STAGE(kDzs, r, dz4);
     }
@@ -217,25 +233,25 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
   __syncthreads();
 
   // G = dh_g = (relu_g > 0)·(G·Wg2ᵀ)
-  rows_times_weights(acc, Gq, wg2t, wbuf, D, col0);
+  rows_times_weights<D>(pipe, G, wg2t, wg1t, G);
 #pragma unroll
   for (int r = 0; r < kMaxK; ++r) {
-    const float4 h = masked(acc[r], (unsigned)(mask_g >> (4 * r)) & 15u);
-    st4(Gq + r * D + col0, h);
+    const float4 h = masked(ld4(Gq + r * ld), (unsigned)(mask_g >> (4 * r)) & 15u);
+    st4(Gq + r * ld, h);
     STAGE(kDhG, r, h);
   }
   __syncthreads();
 
   // datt = G·Wg1ᵀ;  dq_n = sum over the slots;  G = dpos = datt + dvpos
-  rows_times_weights(acc, Gq, wg1t, wbuf, D, col0);
+  rows_times_weights<D>(pipe, G, wg1t, wd2t, G);
   {
     float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
     for (int r = 0; r < kMaxK; ++r) {
-      const float4 da = make_float4(acc[r][0], acc[r][1], acc[r][2], acc[r][3]);
-      const float4 dp = add4(da, ld4(Pq + r * D + col0));
+      const float4 da = ld4(Gq + r * ld);
+      const float4 dp = add4(da, ld4(Pq + r * ld));
       sum = add4(sum, da);
-      st4(Gq + r * D + col0, dp);
+      st4(Gq + r * ld, dp);
       STAGE(kDatt, r, da);
       STAGE(kDpos, r, dp);
     }
@@ -244,22 +260,29 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
   __syncthreads();
 
   // dh_d = (relu_d > 0)·(G·Wd2ᵀ)
-  rows_times_weights(acc, Gq, wd2t, wbuf, D, col0);
+  rows_times_weights<D>(pipe, G, wd2t, nullptr, G);
 #pragma unroll
   for (int r = 0; r < kMaxK; ++r) {
-    STAGE(kDhD, r, masked(acc[r], (unsigned)(mask_d >> (4 * r)) & 15u));
+    STAGE(kDhD, r, masked(ld4(Gq + r * ld), (unsigned)(mask_d >> (4 * r)) & 15u));
   }
 #undef STAGE
+  cluster_sync();  // no block exits while another of its cluster may still signal it
 }
 
 // One 128 × 128 tile of AᵀG over rows [k0, k1) of the staged operands A and G
-// (rows, D): partial[split][pair] is (D + 1, D), dW in its first D rows (in,
-// out) and G's column sums, the bias gradient, in the last.
-__global__ void __launch_bounds__(256)
+// (rows, D), on the tensor cores as 3×TF32 (vecattn_tile.cuh): partial[split]
+// [pair] is (D + 1, D), dW in its first D rows (in, out) and G's column sums,
+// the bias gradient, in the last. The mma's A operand (16 weight rows × 8
+// edge rows) is read transposed from the row-major stage, which mma.sync
+// allows because its fragments are loaded by hand. Warp (wm, wn) of the 4 ×
+// 2 warps owns the 32 × 64 sub-tile at (32·wm, 64·wn).
+__global__ void __launch_bounds__(kThreads)
 vecattn_bwd_wgrad_kernel(const float* __restrict__ stage, float* __restrict__ partial,
                          int rows, int D, int share, size_t plane) {
-  __shared__ __align__(16) float As[2][kTileK][kTile];
-  __shared__ __align__(16) float Gs[2][kTileK][kTile];
+  extern __shared__ __align__(16) float wsm[];
+  // [kWgStages][kTileK][kTileLd] each
+  auto As = reinterpret_cast<float(*)[kTileK][kTileLd]>(wsm);
+  auto Gs = reinterpret_cast<float(*)[kTileK][kTileLd]>(wsm + kWgStages * kTileK * kTileLd);
   const int pair = blockIdx.z;  // dWg2, dWg1, dWd2
   const int a_plane = pair == 0 ? kReluG : pair == 1 ? kAttIn : kReluD;
   const int g_plane = pair == 0 ? kDzs : pair == 1 ? kDhG : kDpos;
@@ -270,14 +293,16 @@ vecattn_bwd_wgrad_kernel(const float* __restrict__ stage, float* __restrict__ pa
   const int k0 = blockIdx.y * share;
   const int k1 = min(k0 + share, rows);
   const int nchunks = k1 > k0 ? (k1 - k0) / kTileK : 0;  // rows and share are multiples of 16
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int g = lane >> 2, t = lane & 3;
+  const int wm = (warp / 2) * 32, wn = (warp % 2) * 64;
 
   // a stage: 16 rows × 128 floats of each operand, two float4 per thread each
   auto load = [&](int stage_id, int chunk) {
     const size_t base = (size_t)(k0 + chunk * kTileK) * D;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int f = threadIdx.x + i * 256;  // float4 index in the 16 × 32 stage
+      const int f = threadIdx.x + i * kThreads;  // float4 index in the 16 × 32 stage
       const int r = f / (kTile / 4), c = (f % (kTile / 4)) * 4;
       cp_async16(&As[stage_id][r][c], A + base + (size_t)r * D + c);
       cp_async16(&Gs[stage_id][r][c], Gm + base + (size_t)r * D + c);
@@ -285,58 +310,88 @@ vecattn_bwd_wgrad_kernel(const float* __restrict__ stage, float* __restrict__ pa
     cp_async_commit();
   };
 
-  float acc[kMicro][kMicro];
-  float colsum[kMicro];
+  float acc[2][8][4];
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    colsum[i] = 0.0f;
+  for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-    for (int j = 0; j < kMicro; ++j) acc[i][j] = 0.0f;
+    for (int ni = 0; ni < 8; ++ni) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mi][ni][c] = 0.0f;
+    }
   }
-  const bool sums = m0 == 0 && ty == 0;
+  float colsum = 0.0f;  // thread t < 128 of the first tile row: column n0 + t
+  const bool sums = m0 == 0 && threadIdx.x < kTile;
 
-  if (nchunks > 0) load(0, 0);
-  for (int ch = 0; ch < nchunks; ++ch) {
-    if (ch + 1 < nchunks) {
-      load((ch + 1) & 1, ch + 1);
-      cp_async_wait<1>();
+  // a ring of kWgStages stages, kWgStages - 1 chunks in flight; an empty
+  // group stands in for a chunk past the share, so the waits count alike
+  for (int c = 0; c < kWgStages - 1; ++c) {
+    if (c < nchunks) {
+      load(c, c);
     } else {
-      cp_async_wait<0>();
+      cp_async_commit();
     }
-    __syncthreads();
-    const int st = ch & 1;
+  }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_async_wait<kWgStages - 2>();
+    __syncthreads();  // chunk ch has landed for every thread; every thread is done with ch - 1
+    const int next = ch + kWgStages - 1;  // into the stage chunk ch - 1 left
+    if (next < nchunks) {
+      load(next % kWgStages, next);
+    } else {
+      cp_async_commit();
+    }
+    const int st = ch % kWgStages;
+    uint32_t a_hi[2][2][4], a_lo[2][2][4];  // [m tile][k-step]
 #pragma unroll
-    for (int kk = 0; kk < kTileK; ++kk) {
-      const float4 a0 = ld4(&As[st][kk][ty * 4]), a1 = ld4(&As[st][kk][64 + ty * 4]);
-      const float4 g0 = ld4(&Gs[st][kk][tx * 4]), g1 = ld4(&Gs[st][kk][64 + tx * 4]);
-      const float a[kMicro] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float g[kMicro] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+    for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
-      for (int i = 0; i < kMicro; ++i) {
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) acc[i][j] = fmaf(a[i], g[j], acc[i][j]);
-      }
-      if (sums) {
-#pragma unroll
-        for (int j = 0; j < kMicro; ++j) colsum[j] += g[j];
+      for (int ks = 0; ks < 2; ++ks) {
+        const float* a0 = &As[st][ks * 8 + t][wm + mi * 16 + g];
+        const float* a4 = &As[st][ks * 8 + t + 4][wm + mi * 16 + g];
+        split_tf32(a0[0], a_hi[mi][ks][0], a_lo[mi][ks][0]);
+        split_tf32(a0[8], a_hi[mi][ks][1], a_lo[mi][ks][1]);
+        split_tf32(a4[0], a_hi[mi][ks][2], a_lo[mi][ks][2]);
+        split_tf32(a4[8], a_hi[mi][ks][3], a_lo[mi][ks][3]);
       }
     }
-    __syncthreads();  // stage st is free for chunk ch + 2
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      uint32_t b_hi[2][2], b_lo[2][2];
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        split_tf32(Gs[st][ks * 8 + t][wn + ni * 8 + g], b_hi[ks][0], b_lo[ks][0]);
+        split_tf32(Gs[st][ks * 8 + t + 4][wn + ni * 8 + g], b_hi[ks][1], b_lo[ks][1]);
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
+        // the chunk's 16 rows in a fresh accumulator, added in f32 (as in
+        // rows_times_weights)
+        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          mma_3xtf32(part, a_hi[mi][ks], a_lo[mi][ks], b_hi[ks], b_lo[ks]);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[mi][ni][c] += part[c];
+      }
+    }
+    if (sums) {
+#pragma unroll
+      for (int kk = 0; kk < kTileK; ++kk) colsum += Gs[st][kk][threadIdx.x];
+    }
   }
 
   float* dst = partial + ((size_t)blockIdx.y * 3 + pair) * (size_t)(D + 1) * D;
 #pragma unroll
-  for (int i = 0; i < kMicro; ++i) {
-    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
-    st4(dst + (size_t)row * D + n0 + tx * 4, make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
-    st4(dst + (size_t)row * D + n0 + 64 + tx * 4,
-        make_float4(acc[i][4], acc[i][5], acc[i][6], acc[i][7]));
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni) {
+      float* o = dst + (size_t)(m0 + wm + mi * 16 + g) * D + n0 + wn + ni * 8 + 2 * t;
+      *reinterpret_cast<float2*>(o) = make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<float2*>(o + 8 * (size_t)D) = make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
   }
-  if (sums) {
-    st4(dst + (size_t)D * D + n0 + tx * 4, make_float4(colsum[0], colsum[1], colsum[2], colsum[3]));
-    st4(dst + (size_t)D * D + n0 + 64 + tx * 4,
-        make_float4(colsum[4], colsum[5], colsum[6], colsum[7]));
-  }
+  if (sums) dst[(size_t)D * D + n0 + threadIdx.x] = colsum;
 }
 
 // partial[split] (4, D) = [delta, 1]ᵀ·dh_d over this block's share of the
@@ -431,8 +486,31 @@ __global__ void vecattn_bwd_reduce_kernel(const float* __restrict__ src0, float*
 }
 
 bool bad_shape(int B, int N, int D, int k) {
-  return B < 1 || B > 65535 || N < 1 || k < 1 || k > kMaxK || k > N || D < 128 || D > kMaxD ||
-         D % 128 != 0;
+  return B < 1 || B > 65535 || N < 1 || k < 1 || k > kMaxK || k > N ||
+         (D != 128 && D != 256 && D != 512);
+}
+
+template <int D>
+int launch_edge(const float* xyz, const float* q, const float* key, const float* val,
+                const float* wd1, const float* bd1, const float* wd2, const float* bd2,
+                const float* wg1, const float* bg1, const float* wg2, const float* bg2,
+                const float* wd2t, const float* wg1t, const float* wg2t, const int* idx,
+                const float* m, const float* l, const float* out, const float* dout, float* dq,
+                float* stage, float* delta1, int B, int N, int k, cudaStream_t stream) {
+  using T = Tile<D>;
+  const size_t bytes = kBarrierBytes + sizeof(float) * (2 * (size_t)T::kActFloats +
+                                                        (size_t)kStages * T::kStageFloats);
+  if (bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      vecattn_bwd_edge_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  const int tiles = (N + T::kTq - 1) / T::kTq;
+  const dim3 grid((tiles + kCluster - 1) / kCluster * kCluster, B);
+  vecattn_bwd_edge_kernel<D><<<grid, kThreads, bytes, stream>>>(
+      xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, wd2t, wg1t, wg2t, idx, m, l, out,
+      dout, dq, stage, delta1, N, k, scale, (size_t)B * N * kMaxK * D);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -453,17 +531,16 @@ int vecattn_bwd_edge(const float* xyz, const float* q, const float* key, const f
                      float* dq, float* stage, float* delta1,
                      int B, int N, int D, int k, void* stream) {
   if (bad_shape(B, N, D, k)) return (int)cudaErrorInvalidValue;
-  const int tq = kRowsPerBlock / D;
-  const size_t bytes = sizeof(float) * (2 * (size_t)tq * kMaxK * D + 2 * (size_t)kChunk * D);
-  cudaError_t err = cudaFuncSetAttribute(
-      vecattn_bwd_edge_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  const dim3 grid((N + tq - 1) / tq, B);
-  vecattn_bwd_edge_kernel<<<grid, tq * (D / kCols), bytes, (cudaStream_t)stream>>>(
-      xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, wd2t, wg1t, wg2t, idx, m, l, out,
-      dout, dq, stage, delta1, N, D, k, scale, (size_t)B * N * kMaxK * D);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+#define EDGE_ARGS                                                                            \
+  xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, wd2t, wg1t, wg2t, idx, m, l, out, \
+      dout, dq, stage, delta1, B, N, k, s
+  switch (D) {
+    case 128: return launch_edge<128>(EDGE_ARGS);
+    case 256: return launch_edge<256>(EDGE_ARGS);
+    default: return launch_edge<512>(EDGE_ARGS);
+  }
+#undef EDGE_ARGS
 }
 
 // partial (splits, 3, D + 1, D) from the staged planes of `rows` rows.
@@ -476,7 +553,10 @@ int vecattn_bwd_wgrad(const float* stage, float* partial, int rows, int D, int s
   const int chunks = rows / kTileK;
   const int share = (chunks + splits - 1) / splits * kTileK;
   const dim3 grid((D / kTile) * (D / kTile), splits, 3);
-  vecattn_bwd_wgrad_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+  cudaError_t err = cudaFuncSetAttribute(
+      vecattn_bwd_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWgSmem);
+  if (err != cudaSuccess) return (int)err;
+  vecattn_bwd_wgrad_kernel<<<grid, kThreads, kWgSmem, (cudaStream_t)stream>>>(
       stage, partial, rows, D, share, (size_t)rows * D);
   return (int)cudaGetLastError();
 }

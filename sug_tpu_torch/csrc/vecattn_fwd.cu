@@ -13,39 +13,51 @@
 //   m     = max_j z_j,  l = sum_j exp(z_j - m)
 //   out   = sum_j exp(z_j - m) (val_j + pos_j) / l          (per channel)
 // Inputs xyz (B,N,3), q/key/val (B,N,D), wd1 (3,D), wd2/wg1/wg2 (D,D) in the
-// (in, out) layout, biases (D), all f32 contiguous and 16-byte aligned;
-// outputs out/m/l (B,N,D) f32 and idx (B,N,k) int32. D is a multiple of 128
-// up to 512. s is 1/sqrt(D) computed in double and rounded to f32, as the
-// plain PyTorch version computes it.
+// (in, out) layout with each row padded to D + 8 floats (kWPad; the padding
+// is never read into a product), biases (D), all f32 contiguous and 16-byte
+// aligned;
+// outputs out/m/l (B,N,D) f32 and idx (B,N,k) int32. D is 128, 256 or 512.
+// s is 1/sqrt(D) computed in double and rounded to f32, as the plain
+// PyTorch version computes it.
 //
-// What bounds it on an H100. Operations: B·N·(2·N·C + k·(2·C·D + 6·D^2)) f32,
+// What bounds it on an H100. Operations: B·N·(2·N·C + k·(2·C·D + 6·D^2)),
 // almost all of it the three D×D products per edge; at PTran's level 0
-// (B=64, N=1024, D=512, k=16) that is 1.65 TFLOP, 24.7 ms at 67 TFLOP/s
-// outside the tensor cores. Bytes: xyz, q, key, val and the weights read
-// once, out/m/l/idx written once, ~0.8 GB there, 0.24 ms at 3.35 TB/s. So
-// f32 arithmetic bounds it, by about 100x.
+// (B=64, N=1024, D=512, k=16) that is 1.65 TFLOP. The products run on the
+// tensor cores as 3×TF32 (three TF32 products per f32 product, for f32's
+// accuracy: vecattn_tile.cuh), so their bound is 3 × 1.65 TFLOP at 495
+// TFLOP/s, 10.0 ms, against 24.7 ms for the same work in f32 outside the
+// tensor cores. Bytes: xyz, q, key, val and the weights read once,
+// out/m/l/idx written once, ~0.8 GB there, 0.24 ms at 3.35 TB/s. So the
+// tensor-core arithmetic bounds it. Next in line is the L2 stream of the
+// weights: every block multiplies its 32 edge rows (D=512) by three 1 MiB
+// weights, 103 GB of L2 reads per call at level 0 if each block read them
+// alone. A cluster of kCluster blocks shares each weight chunk (one
+// multicast copy per chunk and cluster), which cuts that kCluster times.
 //
-// Design (simple and right first; tensor cores are later work):
-// - One block per (cloud, TQ queries); TQ = 1024/D, so 256 threads at
-//   D = 128, 256, 512. The block's E = 16·TQ edge rows (16 neighbour slots
+// Design:
+// - One block of 256 threads per (cloud, TQ queries); TQ = 1024/D, for D =
+//   128, 256 or 512. The block's E = 16·TQ edge rows (16 neighbour slots
 //   per query; slots past k repeat slot 0 and are masked in the softmax).
+//   The grid's query tiles are rounded up to whole clusters; the blocks
+//   past the last query run every product on clamped inputs, take part in
+//   every copy and barrier of their cluster, and store nothing.
 // - Phase A, kNN: the block writes the TQ distance rows to shared memory
 //   (the same formula as the plain version, so exact duplicates tie
-//   exactly); then one warp per query runs k rounds of a warp arg-min over
-//   (distance, index).
-// - Phase B, the per-edge products, as a register-tiled SIMT product inside
-//   the kernel: thread (query, 4 channels) owns the 16 × 4 output tile of its
-//   query's 16 rows. Activations sit in two (E, D) shared-memory buffers, G
-//   (the product's input) and P (pos). Weight chunks of 16 rows stream from
-//   global memory (the 3 MB of weights stay in the 50 MB L2) through a
-//   two-stage cp.async ring. A product writes its result over its own input
-//   after the last chunk, so three products need only G and P:
+//   exactly); then 8/TQ warps per query run k rounds of an arg-min over
+//   (distance, index). Meanwhile the first weight chunks are in flight.
+// - Phase B, the per-edge products (vecattn_tile.cuh, `rows_times_weights`:
+//   3×TF32 mma.sync, weight chunks multicast across the cluster).
+//   Activations sit in two (E, D) shared-memory tiles, G (the product's
+//   input) and P (pos). A product writes its result over its input, so
+//   three products need only G and P:
 //     G = relu_d;  P = pos = G·Wd2 + bd2, G = q - key + P;
-//     G = relu(G·Wg1 + bg1);  z = (G·Wg2 + bg2)·s stays in registers.
+//     G = relu(G·Wg1 + bg1);  G = G·Wg2, z = (G + bg2)·s.
+//   Between products a thread (query, 4 channels) applies biases, relus
+//   and the gathers to its query's 16 × 4 tile.
 // - Phase C, the softmax: a thread holds all k logits of its channels, so
 //   m, l and out come from its registers, P and the gathered val rows.
-// Everything is f32 with FMAs: no TF32, no tensor cores. The kernel runs on
-// the caller's stream, does not synchronise and allocates nothing.
+// The kernel runs on the caller's stream, does not synchronise and
+// allocates nothing.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -58,24 +70,25 @@ namespace {
 
 struct Layout {
   int tq;             // queries per block
-  int threads;        // tq * D / kCols
   size_t act_floats;  // G and P, or the distance rows during phase A
   size_t bytes;       // dynamic shared memory
 };
 
-Layout make_layout(int N, int D) {
+template <int D>
+Layout make_layout(int N) {
+  using T = Tile<D>;
   Layout L;
-  L.tq = kRowsPerBlock / D;
-  L.threads = L.tq * (D / kCols);
-  const size_t act = 2 * (size_t)L.tq * kMaxK * D;
-  const size_t dist = ((size_t)L.tq * N + 3) / 4 * 4;  // float4-aligned end
+  L.tq = T::kTq;
+  const size_t act = 2 * (size_t)T::kActFloats;
+  const size_t dist = ((size_t)T::kTq * N + 3) / 4 * 4;  // float4-aligned end
   L.act_floats = act > dist ? act : dist;
-  L.bytes = sizeof(float) * (L.act_floats + 2 * (size_t)kChunk * D) +
-            sizeof(int) * (size_t)L.tq * kMaxK;
+  L.bytes = kBarrierBytes + sizeof(float) * (L.act_floats + (size_t)kStages * T::kStageFloats) +
+            sizeof(int) * (size_t)T::kE;
   return L;
 }
 
-__global__ void __launch_bounds__(256, 1)
+template <int D>
+__global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
                    const float* __restrict__ key, const float* __restrict__ val,
                    const float* __restrict__ wd1, const float* __restrict__ bd1,
@@ -84,24 +97,28 @@ vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
                    const float* __restrict__ wg2, const float* __restrict__ bg2,
                    float* __restrict__ out, float* __restrict__ m_out,
                    float* __restrict__ l_out, int* __restrict__ idx_out,
-                   int N, int D, int k, float scale, int act_floats) {
-  extern __shared__ __align__(16) float smem[];
-  const int tq = kRowsPerBlock / D;
-  const int E = tq * kMaxK;
-  float* P = smem;                       // [E][D] pos
-  float* G = smem + (size_t)E * D;       // [E][D] relu_d, att_in, relu_g
-  float* dist = smem;                    // [tq][N] during phase A
-  float* wbuf = smem + act_floats;       // [2][kChunk][D]
-  int* sidx = reinterpret_cast<int*>(wbuf + 2 * kChunk * D);  // [tq][kMaxK]
+                   int N, int k, float scale, int act_floats) {
+  using T = Tile<D>;
+  constexpr int tq = T::kTq, ld = T::kLd;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  float* act = reinterpret_cast<float*>(smem_raw + kBarrierBytes);
+  float* P = act;                        // [E][ld] pos
+  float* G = act + T::kActFloats;        // [E][ld] relu_d, att_in, relu_g, the logits
+  float* dist = act;                     // [tq][N] during phase A
+  float* wbuf = act + act_floats;        // [kStages][kChunk][D + kWPad]
+  int* sidx = reinterpret_cast<int*>(wbuf + kStages * T::kStageFloats);  // [tq][kMaxK]
+
+  WeightPipe pipe = pipe_init(smem_raw, wbuf);
+  pipe_prologue<D>(pipe, wd2);  // the first chunks of Wd2 load during phase A
 
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * tq;
-  const int per_query = D / kCols;
+  constexpr int per_query = D / kCols;
   const int ql = threadIdx.x / per_query;  // this thread's query in the block
   const int col0 = (threadIdx.x % per_query) * kCols;
   const int n = n0 + ql;
   const bool valid = n < N;
-  const int n_ld = valid ? n : N - 1;    // idle queries of a ragged tile
+  const int n_ld = valid ? n : N - 1;    // idle queries of a ragged or idle tile
   const float* xyzb = xyz + (size_t)b * N * 3;
 
   // Phase A: the block's distance rows, then k arg-min rounds per query
@@ -115,38 +132,53 @@ vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
     dist[e] = (-2.0f * dot + qsq) + ksq;
   }
   __syncthreads();
+  // kWq warps per query: each takes the arg-min of its share of the row
+  // (lanes scan their strided columns in ascending order, so a strict <
+  // keeps the lowest index per lane; the shuffle breaks ties by index), and
+  // the query's first lane combines the kWq candidates, lowest index first
+  // among equal distances
+  constexpr int kWq = kThreads / kWarp / tq;
+  __shared__ float cand_d[kThreads / kWarp];
+  __shared__ int cand_i[kThreads / kWarp];
   const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
-  for (int qi = warp; qi < tq; qi += blockDim.x / kWarp) {
-    float* drow = dist + (size_t)qi * N;
-    // lanes scan their strided columns in ascending order, so a strict <
-    // keeps the lowest index per lane; the shuffle breaks ties by index
-    for (int r = 0; r < k; ++r) {
-      float bd = CUDART_INF_F;
-      int bi = N;
-      for (int j = lane; j < N; j += kWarp) {
-        const float d = drow[j];
-        if (d < bd) { bd = d; bi = j; }
-      }
-      for (int off = kWarp / 2; off > 0; off >>= 1) {
-        const float od = __shfl_xor_sync(0xffffffffu, bd, off);
-        const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
-        if (od < bd || (od == bd && oi < bi)) { bd = od; bi = oi; }
+  const int qa = warp / kWq, share = warp % kWq;
+  float* drow = dist + (size_t)qa * N;
+  for (int r = 0; r < k; ++r) {
+    float bd = CUDART_INF_F;
+    int bi = N;
+    for (int j = share * kWarp + lane; j < N; j += kWarp * kWq) {
+      const float d = drow[j];
+      if (d < bd) { bd = d; bi = j; }
+    }
+    for (int off = kWarp / 2; off > 0; off >>= 1) {
+      const float od = __shfl_xor_sync(0xffffffffu, bd, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, off);
+      if (od < bd || (od == bd && oi < bi)) { bd = od; bi = oi; }
+    }
+    if (lane == 0) {
+      cand_d[warp] = bd;
+      cand_i[warp] = bi;
+    }
+    __syncthreads();
+    if (share == 0 && lane == 0) {
+      for (int w = warp + 1; w < warp + kWq; ++w) {
+        if (cand_d[w] < bd || (cand_d[w] == bd && cand_i[w] < bi)) {
+          bd = cand_d[w];
+          bi = cand_i[w];
+        }
       }
       bi = min(bi, N - 1);  // only non-finite distances leave the sentinel
-      if (lane == 0) {
-        sidx[qi * kMaxK + r] = bi;
-        drow[bi] = CUDART_INF_F;
-      }
-      __syncwarp();
+      sidx[qa * kMaxK + r] = bi;
+      drow[bi] = CUDART_INF_F;
     }
+    __syncthreads();  // after the last round sidx is complete, the distance rows dead
   }
-  __syncthreads();  // sidx is complete; the distance rows are dead
 
   int nbr[kMaxK];  // slots past k repeat slot 0: finite, and masked below
 #pragma unroll
   for (int r = 0; r < kMaxK; ++r) nbr[r] = sidx[ql * kMaxK + (r < k ? r : 0)];
-  float* Pq = P + (size_t)ql * kMaxK * D;
-  float* Gq = G + (size_t)ql * kMaxK * D;
+  float* Pq = P + (size_t)ql * kMaxK * ld + col0;
+  float* Gq = G + (size_t)ql * kMaxK * ld + col0;
   const size_t row_n = ((size_t)b * N + n_ld) * D;
 
   // G = relu((x_n - x_j)·Wd1 + bd1)
@@ -163,47 +195,48 @@ vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
       h.y = fmaxf(fmaf(d2, w2.y, fmaf(d1, w1.y, d0 * w0.y)) + bias.y, 0.0f);
       h.z = fmaxf(fmaf(d2, w2.z, fmaf(d1, w1.z, d0 * w0.z)) + bias.z, 0.0f);
       h.w = fmaxf(fmaf(d2, w2.w, fmaf(d1, w1.w, d0 * w0.w)) + bias.w, 0.0f);
-      st4(Gq + r * D + col0, h);
+      st4(Gq + r * ld, h);
     }
   }
   __syncthreads();
 
-  float acc[kMaxK][kCols];
-
   // P = G·Wd2 + bd2;  G = (q_n - key_j) + P
-  rows_times_weights(acc, Gq, wd2, wbuf, D, col0);
+  rows_times_weights<D>(pipe, G, wd2, wg1, G);
   {
     const float4 bias = ld4(bd2 + col0);
     const float4 qv = ld4(q + row_n + col0);
 #pragma unroll
     for (int r = 0; r < kMaxK; ++r) {
       const float4 kv = ld4(key + ((size_t)b * N + nbr[r]) * D + col0);
-      const float4 p = make_float4(acc[r][0] + bias.x, acc[r][1] + bias.y,
-                                   acc[r][2] + bias.z, acc[r][3] + bias.w);
-      st4(Pq + r * D + col0, p);
-      st4(Gq + r * D + col0, make_float4((qv.x - kv.x) + p.x, (qv.y - kv.y) + p.y,
-                                         (qv.z - kv.z) + p.z, (qv.w - kv.w) + p.w));
+      const float4 a = ld4(Gq + r * ld);
+      const float4 p = make_float4(a.x + bias.x, a.y + bias.y, a.z + bias.z, a.w + bias.w);
+      st4(Pq + r * ld, p);
+      st4(Gq + r * ld, make_float4((qv.x - kv.x) + p.x, (qv.y - kv.y) + p.y,
+                                   (qv.z - kv.z) + p.z, (qv.w - kv.w) + p.w));
     }
   }
   __syncthreads();
 
   // G = relu(G·Wg1 + bg1)
-  rows_times_weights(acc, Gq, wg1, wbuf, D, col0);
+  rows_times_weights<D>(pipe, G, wg1, wg2, G);
   {
     const float4 bias = ld4(bg1 + col0);
 #pragma unroll
     for (int r = 0; r < kMaxK; ++r) {
-      st4(Gq + r * D + col0,
-          make_float4(fmaxf(acc[r][0] + bias.x, 0.0f), fmaxf(acc[r][1] + bias.y, 0.0f),
-                      fmaxf(acc[r][2] + bias.z, 0.0f), fmaxf(acc[r][3] + bias.w, 0.0f)));
+      const float4 a = ld4(Gq + r * ld);
+      st4(Gq + r * ld, make_float4(fmaxf(a.x + bias.x, 0.0f), fmaxf(a.y + bias.y, 0.0f),
+                                   fmaxf(a.z + bias.z, 0.0f), fmaxf(a.w + bias.w, 0.0f)));
     }
   }
   __syncthreads();
 
-  // z = (G·Wg2 + bg2)·s in registers; the softmax over the k valid slots
-  rows_times_weights(acc, Gq, wg2, wbuf, D, col0);
+  // z = (G·Wg2 + bg2)·s; the softmax over the k valid slots
+  rows_times_weights<D>(pipe, G, wg2, nullptr, G);
+  cluster_sync();  // no block exits while another of its cluster may still signal it
   if (!valid) return;  // no barrier follows
-  const float bias[kCols] = {bg2[col0], bg2[col0 + 1], bg2[col0 + 2], bg2[col0 + 3]};
+  const float4 b4 = ld4(bg2 + col0);
+  const float bias[kCols] = {b4.x, b4.y, b4.z, b4.w};
+  float z[kMaxK][kCols];
   float mx[kCols], lsum[kCols], o[kCols];
 #pragma unroll
   for (int c = 0; c < kCols; ++c) {
@@ -213,21 +246,23 @@ vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
   }
 #pragma unroll
   for (int r = 0; r < kMaxK; ++r) {
+    const float4 a = ld4(Gq + r * ld);
+    const float av[kCols] = {a.x, a.y, a.z, a.w};
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
-      acc[r][c] = (acc[r][c] + bias[c]) * scale;
-      if (r < k) mx[c] = fmaxf(mx[c], acc[r][c]);
+      z[r][c] = (av[c] + bias[c]) * scale;
+      if (r < k) mx[c] = fmaxf(mx[c], z[r][c]);
     }
   }
 #pragma unroll
   for (int r = 0; r < kMaxK; ++r) {
     if (r < k) {
       const float4 v = ld4(val + ((size_t)b * N + nbr[r]) * D + col0);
-      const float4 p = ld4(Pq + r * D + col0);
+      const float4 p = ld4(Pq + r * ld);
       const float vp[kCols] = {v.x + p.x, v.y + p.y, v.z + p.z, v.w + p.w};
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        const float e = expf(acc[r][c] - mx[c]);
+        const float e = expf(z[r][c] - mx[c]);
         lsum[c] += e;
         o[c] += e * vp[c];
       }
@@ -242,35 +277,55 @@ vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
   }
 }
 
+template <int D>
+int launch(const float* xyz, const float* q, const float* key, const float* val,
+           const float* wd1, const float* bd1, const float* wd2, const float* bd2,
+           const float* wg1, const float* bg1, const float* wg2, const float* bg2,
+           float* out, float* m, float* l, int* idx, int B, int N, int k, cudaStream_t stream) {
+  const Layout L = make_layout<D>(N);
+  if (L.bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
+  const float scale = (float)(1.0 / sqrt((double)D));
+  cudaError_t err = cudaFuncSetAttribute(
+      vecattn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles = (N + L.tq - 1) / L.tq;
+  const dim3 grid((tiles + kCluster - 1) / kCluster * kCluster, B);
+  vecattn_fwd_kernel<D><<<grid, kThreads, L.bytes, stream>>>(
+      xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l, idx,
+      N, k, scale, (int)L.act_floats);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches the kernel on `stream`. Returns a cudaError_t:
-// cudaErrorInvalidValue when the shapes are out of range (D not a multiple
-// of 128 up to 512, k outside [1, min(N, 16)]) or N is too large for the
-// distance rows in shared memory; otherwise cudaGetLastError() after the
-// launch.
+// cudaErrorInvalidValue when the shapes are out of range (D not 128, 256 or
+// 512, k outside [1, min(N, 16)]) or N is too large for the distance rows
+// in shared memory; otherwise cudaGetLastError() after the launch.
 int vecattn_fwd(const float* xyz, const float* q, const float* key, const float* val,
                 const float* wd1, const float* bd1, const float* wd2, const float* bd2,
                 const float* wg1, const float* bg1, const float* wg2, const float* bg2,
                 float* out, float* m, float* l, int* idx,
                 int B, int N, int D, int k, void* stream) {
-  if (B < 1 || B > 65535 || N < 1 || k < 1 || k > kMaxK || k > N || D < 128 ||
-      D > kMaxD || D % 128 != 0) {
+  if (B < 1 || B > 65535 || N < 1 || k < 1 || k > kMaxK || k > N) {
     return (int)cudaErrorInvalidValue;
   }
-  const Layout L = make_layout(N, D);
-  if (L.bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
-  const float scale = (float)(1.0 / sqrt((double)D));
-  cudaError_t err = cudaFuncSetAttribute(
-      vecattn_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + L.tq - 1) / L.tq, B);
-  vecattn_fwd_kernel<<<grid, L.threads, L.bytes, (cudaStream_t)stream>>>(
-      xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l, idx,
-      N, D, k, scale, (int)L.act_floats);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (D) {
+    case 128:
+      return launch<128>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l,
+                         idx, B, N, k, s);
+    case 256:
+      return launch<256>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l,
+                         idx, B, N, k, s);
+    case 512:
+      return launch<512>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l,
+                         idx, B, N, k, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 const char* vecattn_error_string(int err) {

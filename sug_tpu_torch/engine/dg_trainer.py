@@ -16,7 +16,8 @@ Loss semantics, as in the JAX package:
 
 ``model_name`` is "DGCNN", "PTran" or "Pointnet"; each runs the sequential
 forward, as in the JAX package. Config keys of paths not ported yet (GRL,
-``PRECISION: bf16``, per-replica BN, the stacked forward, the KPConv
+``PRECISION: bf16`` or ``SUG_PRECISION=bf16``, per-replica or grouped BN
+(``SUG_BN_GROUPS``), the stacked forward, the KPConv
 regularizer, the CL and hard MMDs) raise ``NotImplementedError`` naming
 ROADMAP.md.
 """
@@ -62,6 +63,31 @@ def make_criterion(opt_cfg, source_dataset=None, num_class: int = 10, device="cp
     return cross_entropy
 
 
+_F32_NAMES = ("f32", "fp32", "float32", "none")
+_BF16_NAMES = ("bf16", "bfloat16")
+
+
+def check_precision(cfg=None) -> None:
+    """Raise unless the compute precision is f32, read as the JAX package
+    reads it: ``PRECISION`` at the top level, else under ``OPTIMIZATION``;
+    ``SUG_PRECISION=bf16`` wins whatever the config says, since an f32
+    policy leaves the env var in force. ``cfg=None`` checks the env alone."""
+    prec = None
+    if cfg is not None:
+        prec = cfg.get("PRECISION", None)
+        if prec is None:
+            prec = (cfg.get("OPTIMIZATION", None) or {}).get("PRECISION", None)
+    if prec is not None:
+        name = str(prec).lower()
+        if name in _BF16_NAMES:
+            raise _not_ported(f"PRECISION {prec!r} (the bf16 policy, ROADMAP item 12)")
+        if name not in _F32_NAMES:
+            raise ValueError(f"unknown PRECISION {prec!r} (use 'bf16' or 'f32')")
+    env = os.environ.get("SUG_PRECISION", "")
+    if env.lower() in _BF16_NAMES:
+        raise _not_ported(f"SUG_PRECISION={env} (the bf16 policy, ROADMAP item 12)")
+
+
 def check_supported(cfg, model_name: str) -> None:
     """Raise for config keys whose paths the port does not have yet."""
     methods = cfg["METHODS"]
@@ -70,11 +96,15 @@ def check_supported(cfg, model_name: str) -> None:
                           "the other backbones)")
     if methods.get("GRL", False):
         raise _not_ported("METHODS.GRL (the gradient-reversal layer)")
-    if str(cfg.get("PRECISION", "f32")).lower() not in ("f32", "fp32", "float32"):
-        raise _not_ported(f"PRECISION {cfg.get('PRECISION')!r} (the values_bf16 kernel mode)")
+    check_precision(cfg)
     model_cfg = cfg.get("MODEL_CFG", None) or {}
-    if str(model_cfg.get("BN_SEMANTICS", "global")).lower() != "global":
-        raise _not_ported("MODEL_CFG.BN_SEMANTICS per_replica (grouped BN)")
+    semantics = model_cfg.get("BN_SEMANTICS", None)
+    if semantics is not None and str(semantics).lower() != "global":
+        raise _not_ported("MODEL_CFG.BN_SEMANTICS per_replica (grouped BN, ROADMAP item 10)")
+    groups = os.environ.get("SUG_BN_GROUPS", "")
+    if semantics is None and groups.isdigit() and int(groups) > 1:
+        # the JAX package's bn_groups() honours the env var unless BN_SEMANTICS is set
+        raise _not_ported(f"SUG_BN_GROUPS={groups} (grouped BN, ROADMAP item 10)")
     if os.environ.get("SUG_STACKED_FORWARD") == "1":
         raise _not_ported("SUG_STACKED_FORWARD=1 (the stacked both-domains forward)")
     for key in ("GEO_MMD", "SEM_MMD"):

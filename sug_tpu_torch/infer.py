@@ -27,6 +27,7 @@ from sug_tpu_torch import resolve_device
 from sug_tpu_torch.data.datasets import PointCloudDataset, create_single_dataset
 from sug_tpu_torch.data.sampler import BatchIterator
 from sug_tpu_torch.engine.checkpoint import load_checkpoint
+from sug_tpu_torch.engine.dg_trainer import check_precision
 from sug_tpu_torch.engine.evaluation import Evaluator
 from sug_tpu_torch.models.net_mda import NetMDA, ensemble_logits
 
@@ -76,6 +77,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             "the standalone-classifier route (infer without --dg) is not ported yet; "
             "it is queued in ROADMAP.md"
         )
+    check_precision()
     device = resolve_device(args.device)
     model = load_model(args.model, args.ckpt, device, args.num_points)
 

@@ -45,6 +45,13 @@ from sug_tpu_torch.ops.geometry import index_points, knn_indices
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 MAX_K = 16
+# the widths the CUDA kernels are built for (a block holds 1024/D queries)
+KERNEL_WIDTHS = (128, 256, 512)
+# The kernels stream each (D, D) weight into shared memory in chunks of rows,
+# one bulk copy per chunk, which cannot pad; they take the weights with each
+# row padded to D + WEIGHT_PAD floats (csrc/vecattn_tile.cuh, kWPad), so that
+# their tensor-core fragment loads hit distinct banks.
+WEIGHT_PAD = 8
 NAMES = ("xyz", "q", "key", "val", "wd1", "bd1", "wd2", "bd2", "wg1", "bg1", "wg2", "bg2")
 # the backward's outputs, in the order of the inputs they are gradients of
 BWD_NAMES = tuple("d" + name for name in NAMES[1:])
@@ -108,12 +115,22 @@ def _check(args, k: int) -> None:
         raise ValueError(f"vector_attention: need 1 <= k <= min(N, {MAX_K}), got k={k}, N={N}")
 
 
+def _padded(w: torch.Tensor) -> torch.Tensor:
+    """A (D, D) weight as the kernels take it: rows of D + WEIGHT_PAD floats."""
+    return torch.nn.functional.pad(w, (0, WEIGHT_PAD))
+
+
+def _kernel_weights(args):
+    """args[4:] (wd1 ... bg2) with the three (D, D) weights padded."""
+    return [_padded(t) if i in (2, 4, 6) else t for i, t in enumerate(args[4:])]
+
+
 def _launch(args, k: int) -> Outputs:
     B, N, _ = args[0].shape
     D = args[1].shape[-1]
-    if D % 128 != 0 or D > 512:
-        raise ValueError(f"vector_attention: the CUDA kernel takes D a multiple of 128 up to "
-                         f"512, got D={D}")
+    if D not in KERNEL_WIDTHS:
+        raise ValueError(f"vector_attention: the CUDA kernel takes D in {KERNEL_WIDTHS}, "
+                         f"got D={D}")
     misaligned = [name for name, t in zip(NAMES, args) if t.data_ptr() % 16]
     if misaligned:
         raise ValueError(f"vector_attention: the CUDA kernel needs 16-byte aligned tensors; "
@@ -124,7 +141,8 @@ def _launch(args, k: int) -> Outputs:
     idx = torch.empty((B, N, k), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vecattn_fwd(*(t.data_ptr() for t in (*args, out, m, l, idx)),
+        err = lib.vecattn_fwd(*(t.data_ptr() for t in (*args[:4], *_kernel_weights(args),
+                                                        out, m, l, idx)),
                               B, N, D, k, stream)
     if err != 0:
         raise RuntimeError(f"vecattn_fwd launch failed: {lib.vecattn_error_string(err).decode()} "
@@ -252,9 +270,9 @@ def clouds_per_chunk(N: int, D: int) -> int:
 
 def _check_launch_bwd(args, idx, m, l, out, dout) -> None:
     D = args[1].shape[-1]
-    if D % 128 != 0 or D > 512:
-        raise ValueError(f"vector_attention_bwd: the CUDA kernels take D a multiple of 128 up to "
-                         f"512, got D={D}")
+    if D not in KERNEL_WIDTHS:
+        raise ValueError(f"vector_attention_bwd: the CUDA kernels take D in {KERNEL_WIDTHS}, "
+                         f"got D={D}")
     named = zip(NAMES + ("idx", "m", "l", "out", "dout"), (*args, idx, m, l, out, dout))
     misaligned = [name for name, t in named if t.data_ptr() % 16]
     if misaligned:
@@ -262,9 +280,16 @@ def _check_launch_bwd(args, idx, m, l, out, dout) -> None:
                          f"{misaligned} are not")
 
 
+def _transposed(args):
+    """Wd2ᵀ, Wg1ᵀ, Wg2ᵀ padded as the kernels take them."""
+    return [_padded(args[i].t()) for i in (6, 8, 10)]
+
+
 def _launch_edge(args, transposed, k: int, idx, m, l, out, dout, dq, planes, delta1) -> None:
     """The edge kernel on the clouds given: writes dq, the staged planes
-    (9, rows, D) and [delta, 1] (rows, 4), rows = B·N·16."""
+    (9, rows, D) and [delta, 1] (rows, 4), rows = B·N·16. ``args[4:]`` and
+    ``transposed`` (Wd2ᵀ, Wg1ᵀ, Wg2ᵀ) are the weights as the kernels take
+    them (``_kernel_weights``, ``_transposed``)."""
     B, N, _ = args[0].shape
     _kernel_call("edge", 23, 4, (*args, *transposed, idx, m, l, out, dout, dq, planes, delta1),
                  (B, N, args[1].shape[-1], k), args[0].device)
@@ -288,7 +313,7 @@ def staged_edge_terms(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2,
     dq = torch.empty((B, N, D), **f32)
     planes = torch.empty((len(_PLANES), B * N * MAX_K, D), **f32)
     delta1 = torch.empty((B * N * MAX_K, 4), **f32)
-    _launch_edge(args, [w.t().contiguous() for w in (wd2, wg1, wg2)], k, idx, m, l, out, dout,
+    _launch_edge((*args[:4], *_kernel_weights(args)), _transposed(args), k, idx, m, l, out, dout,
                  dq, planes, delta1)
     terms = {name: planes[i].view(B, N, MAX_K, D) for i, name in enumerate(_PLANES)}
     terms["delta"] = delta1.view(B, N, MAX_K, 4)[..., :3]
@@ -301,7 +326,7 @@ def _launch_bwd(args, k: int, idx, m, l, out, dout) -> Tuple[torch.Tensor, ...]:
     (B, N), D = xyz.shape[:2], q.shape[-1]
     dev = xyz.device
     f32 = dict(dtype=torch.float32, device=dev)
-    transposed = [w.t().contiguous() for w in (wd2, wg1, wg2)]
+    weights, transposed = _kernel_weights(args), _transposed(args)
     dq, dkey, dval = (torch.empty((B, N, D), **f32) for _ in range(3))
     per_chunk = clouds_per_chunk(N, D)
     starts = range(0, B, per_chunk)
@@ -314,7 +339,7 @@ def _launch_bwd(args, k: int, idx, m, l, out, dout) -> Tuple[torch.Tensor, ...]:
         chunk = slice(b0, min(b0 + per_chunk, B))
         rows = (chunk.stop - b0) * N * MAX_K
         planes = stage[:len(_PLANES) * rows * D].view(len(_PLANES), rows, D)
-        _launch_edge((xyz[chunk], q[chunk], key[chunk], val[chunk], *args[4:]), transposed, k,
+        _launch_edge((xyz[chunk], q[chunk], key[chunk], val[chunk], *weights), transposed, k,
                      idx[chunk], m[chunk], l[chunk], out[chunk], dout[chunk], dq[chunk], planes,
                      delta1)
         _kernel_call("wgrad", 2, 3, (planes, wpart[c]), (rows, D, WGRAD_SPLITS), dev)

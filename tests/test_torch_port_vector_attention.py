@@ -201,3 +201,79 @@ def test_cpu_path_does_not_count_launches():
     before = tva.vector_attention_fwd.launches
     _port(_data(1, 16, 128, seed=5), 4)
     assert tva.vector_attention_fwd.launches == before
+
+
+def _tf32(x):
+    """The TF32 rounding of f32 values as ``cvt.rna.tf32.f32`` does it: to
+    nearest (ties away from zero) on the float32 bits, 10 mantissa bits
+    kept, the low 13 cleared."""
+    bits = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def _mm_tf32(a, w, passes):
+    """a (rows, D) · w (D, D) as the kernels' tensor-core product: chunks of
+    16 of the inner index in ascending order, each summed apart, lo·hi +
+    hi·lo and then hi·hi of the split operands (``passes=3``) or hi·hi alone
+    (``passes=1``, single-pass TF32), and added to one f32 accumulator. The
+    sums round to nearest, where the tensor cores' sums inside a chunk
+    round toward zero: this emulates the operand split and the chunk order,
+    not that truncation."""
+    a_hi, w_hi = _tf32(a), _tf32(w)
+    a_lo, w_lo = _tf32(a - a_hi), _tf32(w - w_hi)
+    acc = np.zeros((a.shape[0], w.shape[1]), np.float32)
+    for k in range(0, a.shape[1], 16):
+        s = slice(k, k + 16)
+        part = a_hi[:, s] @ w_hi[s]
+        if passes == 3:
+            part = (a_lo[:, s] @ w_hi[s] + a_hi[:, s] @ w_lo[s]) + part
+        acc += part
+    return acc
+
+
+def _edge_chain(args, idx, mm, dtype):
+    """The forward's per-edge layers and softmax for the queries of ``idx``
+    (Q, 16) in cloud 0, with the D×D products by ``mm``, in ``dtype``."""
+    xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2 = (
+        np.asarray(a, dtype) for a in args)
+    xyz, q, key, val = xyz[0], q[0], key[0], val[0]
+    n = np.repeat(np.arange(len(idx)), idx.shape[1])
+    j = idx.reshape(-1)
+    relu_d = np.maximum((xyz[n] - xyz[j]) @ wd1 + bd1, 0)
+    t = {"pos": mm(relu_d, wd2) + bd2}
+    t["att_in"] = (q[n] - key[j]) + t["pos"]
+    t["relu_g"] = np.maximum(mm(t["att_in"], wg1) + bg1, 0)
+    t["z"] = (mm(t["relu_g"], wg2) + bg2) * dtype(tva.softmax_scale(q.shape[-1]))
+    z = t["z"].reshape(len(idx), idx.shape[1], -1)
+    t["m"] = z.max(1)
+    e = np.exp(z - t["m"][:, None])
+    t["l"] = e.sum(1)
+    t["out"] = (e * (val[j] + t["pos"]).reshape(z.shape)).sum(1) / t["l"]
+    return t
+
+
+def test_3xtf32_product_holds_the_card_limits():
+    """Why the kernels take three TF32 products per f32 product: the three
+    chained D×D layers at D=512, emulated in 3×TF32 on 384 edge rows (24
+    queries × 16 neighbours), stay within ``chip_smoke.py``'s limits against
+    a float64 run of the same f32 inputs (per-edge tensors VA_EDGE_TOL of
+    max(|x|, rms), out/m/l VA_REL_TOL of max(|x|, 1)); single-pass TF32
+    misses them by far."""
+    from chip_smoke import VA_EDGE_TOL, VA_REL_TOL
+
+    args = _data(1, 256, 512, seed=11)
+    idx = _port(args, 16)[3].numpy()[0, :24]
+    want = _edge_chain(args, idx, np.matmul, np.float64)
+    errors = {}
+    for passes in (3, 1):
+        got = _edge_chain(args, idx, lambda a, w: _mm_tf32(a, w, passes), np.float32)
+        err = {}
+        for name in ("pos", "att_in", "relu_g", "z"):
+            scale = np.maximum(np.abs(want[name]), np.sqrt(np.mean(want[name] ** 2)))
+            err[name] = (np.abs(got[name] - want[name]) / scale).max() / VA_EDGE_TOL
+        for name in ("out", "m", "l"):
+            scale = np.maximum(np.abs(want[name]), 1.0)
+            err[name] = (np.abs(got[name] - want[name]) / scale).max() / VA_REL_TOL
+        errors[passes] = err
+    assert max(errors[3].values()) <= 1.0, errors[3]
+    assert max(errors[1].values()) > 10.0, errors[1]
