@@ -18,8 +18,12 @@ ends the run with a non-zero exit; the phases, in order:
 3. kernels against their plain PyTorch versions on the card: the EdgeConv
    forward and backward at the shapes the DGCNN twin-head forward and
    backward give them at B=64, at ragged sizes (N=1000, S=61), on exact-tie
-   inputs, and (backward) at N=2000, which takes two key tiles, two backward
-   launches agreeing bit for bit; the vector-attention forward at the five
+   inputs, and (backward) at N=2000 with F=40 and at N=32768 keys, where
+   the csr kernel places every entry with one warp; two backward launches
+   agreeing bit for bit in every output and scratch array, and each of the
+   backward's three kernels (csr, rows, keys) equal bit for bit to its
+   plain version on the first two clouds of every backward case; the
+   vector-attention forward at the five
    levels of the PTran forward at B=64 (N=1024 and the ragged N=1000), at
    D=128, and on integer lattices with duplicate points, where the
    neighbour indices must match index for index; the vector-attention
@@ -65,7 +69,10 @@ ends the run with a non-zero exit; the phases, in order:
    gradients of the batch in reverse order as a witness. No path at 1024
    points launches the FPS or min-dists kernel;
 5. times, with CUDA events after warm-up: each kernel shape beside its bound,
-   its plain version and, for min-dists, ``torch.cdist`` and ``amin``; for
+   its plain version and, for min-dists, ``torch.cdist`` and ``amin``; the
+   EdgeConv backward also at the N=4096 shapes and on a zero-padded cloud,
+   and its split by kernel (csr, rows, keys) at block 4 and at N=4096 from a
+   ``torch.profiler`` run; for
    the vector attention at each PTran level its achieved TFLOP/s, its bound
    with the D×D products on the tensor cores as 3xTF32 beside the f32 bound
    outside them, the weight bytes the design asks of L2 (a count from the
@@ -236,6 +243,12 @@ FPS_SHAPES = [(4096, 64), (16384, 512), (4100, 64)]
 # some 30 GB at B=64, by count of their shapes
 LARGE_SHAPES = [SHAPES[0], SHAPES[3], SHAPES[4]]
 LARGE_BWD_B = {"block4": 16}
+# what edgeconv_reduce_bwd_stages returns, in order; and the clouds of each
+# backward case on which each kernel is held bit for bit to its plain
+# version (the plain keys walk takes one step per entry of the longest key
+# list, some 2000 on a zero-padded cloud)
+BWD_STAGES = ("du", "dv", "offsets", "edges", "jmax", "jmin")
+STAGE_B = 2
 # launch counters, in the order counts() returns them
 COUNTERS = ("edgeconv_fwd", "edgeconv_bwd", "vecattn_fwd", "vecattn_bwd_calls", "fps",
             "min_dists")
@@ -378,23 +391,26 @@ def bwd_inputs(q, kv, u, v, k, gen, integer=False):
 
 
 def compare_bwd(name, args, exact=False):
-    """Backward kernel against the plain backward on the same inputs; two
-    launches must give bit-identical results. Returns the max |diff|.
+    """Backward kernels against the plain backward on the same inputs; two
+    launches must give bit-identical results, the csr kernel's offsets and
+    edges and the rows kernel's jmax and jmin included. Returns the max
+    |diff|.
 
     dU and dV are sums of edge cotangents of both signs (a key of many
     neighbour lists collects hundreds), summed in another order by the
     plain version's atomic scatter, so the error is measured relative to
     max(sum of the terms' magnitudes, 1), the scale of f32 summation error;
     the error relative to max(|plain|, 1) is printed beside it."""
-    got = edgeconv.edgeconv_reduce_bwd(*args)
-    again = edgeconv.edgeconv_reduce_bwd(*args)
+    got = edgeconv.edgeconv_reduce_bwd_stages(*args)
+    again = edgeconv.edgeconv_reduce_bwd_stages(*args)
     want = edgeconv.edgeconv_reduce_bwd_plain(*args)
     da_abs = edgeconv.edge_cotangents(*args).abs()
     scales = (edgeconv.scatter_keys(da_abs, args[0], args[1].shape[1]), da_abs.sum(2))
     del da_abs
     torch.cuda.synchronize()
-    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
-        fail(f"{name}: two backward launches on the same inputs differ")
+    for label, g, a in zip(BWD_STAGES, got, again):
+        if not torch.equal(g, a):
+            fail(f"{name}: two backward launches on the same inputs differ in {label}")
     max_err, parts = 0.0, []
     for label, g, w, scale in zip(("du", "dv"), got, want, scales):
         if not torch.isfinite(g).all():
@@ -409,9 +425,36 @@ def compare_bwd(name, args, exact=False):
             fail(f"{name}: {label} differs by {rel:.3e} of its terms' magnitude (> {REL_TOL})")
         if exact and not torch.equal(g, w):
             fail(f"{name}: {label} differs on an exact-tie input: first-hit routing disagrees")
-    print(f"  {name}: {', '.join(parts)}; two launches bit-identical"
-          + ("; exact ties routed identically" if exact else ""), flush=True)
+    print(f"  {name}: {', '.join(parts)}; two launches bit-identical in "
+          f"{', '.join(BWD_STAGES)}" + ("; exact ties routed identically" if exact else ""),
+          flush=True)
     return max_err
+
+
+def compare_bwd_stages(name, args):
+    """Each backward kernel against its plain version, bit for bit, on the
+    first ``STAGE_B`` clouds of ``args``: csr's offsets and edges against
+    ``key_csr_plain``, rows' jmax, jmin and dv against ``first_hits_plain``,
+    keys' du against ``du_by_key_plain`` (the same adds in the same order).
+    Prints the longest key list, which sets the plain walk's length."""
+    args = [a[:STAGE_B] for a in args]
+    name = f"{name}, first {STAGE_B} clouds"
+    got = edgeconv.edgeconv_reduce_bwd_stages(*args)
+    want = edgeconv.edgeconv_reduce_bwd_stages_plain(*args)
+    torch.cuda.synchronize()
+    for kernel, labels in (("csr", ("offsets", "edges")), ("rows", ("jmax", "jmin", "dv")),
+                           ("keys", ("du",))):
+        for label in labels:
+            i = BWD_STAGES.index(label)
+            if not torch.equal(got[i], want[i]):
+                bad = (got[i] != want[i]).sum().item()
+                fail(f"{name}: the {kernel} kernel's {label} differs from its plain "
+                     f"version in {bad} of {got[i].numel()} elements")
+    offsets = got[BWD_STAGES.index("offsets")]
+    longest = (offsets[:, 1:] - offsets[:, :-1]).max().item()
+    print(f"  {name}: csr (offsets, edges), rows (jmax, jmin, dv) and keys (du) "
+          f"equal to their plain versions bit for bit; longest key list {longest} entries",
+          flush=True)
 
 
 def va_inputs(n, gen, device, d=D_MODEL, xyz=None):
@@ -747,6 +790,28 @@ def profile_device(fn, what: str, wall_ms: float, iters: int = 3) -> None:
         print(f"  {ms:9.4f} ms  x{n:<5g} {key[:110]}", flush=True)
 
 
+def bwd_split(fn, what: str, wall_ms: float, iters: int = 3) -> None:
+    """Device time of each EdgeConv backward kernel per launch (torch.profiler
+    over ``iters`` calls of ``fn``, each kernel's time over the launches it
+    recorded), beside the CUDA-event time of one call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for kernel in ("csr", "rows", "keys"):
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and f"edgeconv_bwd_{kernel}_kernel" in e.key]
+        n = sum(e.count for e in rows)
+        ms = sum(e.self_device_time_total for e in rows) / 1e3 / n if n else float("nan")
+        parts.append(f"{kernel} {ms:.4f} ms ({n} of {iters} launches recorded)")
+    print(f"  split of {what} by kernel, device time per launch: {', '.join(parts)}; "
+          f"the call {wall_ms:.4f} ms", flush=True)
+
+
 def write_pointda_tree(root, rng, num_points=N_POINTS):
     """Synthetic train and test dumps of modelnet, shapenet and scannet, of
     ``num_points`` raw points each; at N_LARGE modelnet's clouds have 2048
@@ -1069,6 +1134,108 @@ def serving_run(infer, model_name, seed, rng, dev, n_clouds, num_points=N_POINTS
     return launches, model, batch
 
 
+def edgeconv_cases(gen, dev, bwd=False):
+    """(name, inputs) of the EdgeConv checks: the N=1024 shapes, the ragged
+    ones, the N=4096 ones (the backward's at ``LARGE_BWD_B``), and
+    zero-padded clouds at N=4096."""
+    for shape, n in [(s, N_POINTS) for s in SHAPES] + [(s, RAGGED_N) for s in RAGGED]:
+        yield shape[0], shape_inputs(shape, gen, dev, n)
+    for shape in LARGE_SHAPES:
+        b = LARGE_BWD_B.get(shape[0], B) if bwd else B
+        yield f"{shape[0]} N={N_LARGE}", shape_inputs(shape, gen, dev, N_LARGE, b=b)
+    for shape in (SHAPES[0], SHAPES[4]):
+        yield (f"{shape[0]} N={N_LARGE} zero-padded (2048 real)",
+               shape_inputs(shape, gen, dev, N_LARGE, real=2048))
+
+
+def check_edgeconv_bwd(gen, dev, lat, lat_r):
+    """The EdgeConv backward kernels against the plain backward at every
+    case of ``edgeconv_cases``, on the exact-tie lattices ``lat`` (N=1024)
+    and ``lat_r`` (N=1000), at N=2000 with F=40 and at N=32768 keys; each
+    kernel also bit for bit against its plain version on the first clouds of
+    each case. Returns the max |diff| against the plain backward."""
+    print(f"backward kernels vs plain (tolerance: {REL_TOL} of max(sum of the terms' "
+          "magnitudes, 1); exact ties bit for bit; two launches bit-identical; csr, rows and "
+          f"keys bit for bit against their plain versions on {STAGE_B} clouds):", flush=True)
+    bwd_max_abs_err = 0.0
+    for name, args in edgeconv_cases(gen, dev, bwd=True):
+        args = bwd_inputs(*args, gen)
+        if args[0].shape[0] != B:
+            name += f" B={args[0].shape[0]}"
+        bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd(name, args))
+        compare_bwd_stages(name, args)
+    del args
+    # exact ties in a: lattice points with duplicates and integer values, so
+    # tied neighbours give equal a and every sum is exact
+    for name, q, kv, k in (
+        ("tie self k=20", lat, lat, 20),
+        ("tie cross k=64", lat[:, 128:192].contiguous(), lat, 64),
+        ("tie ragged self N=1000 k=20", lat_r, lat_r, 20),
+        ("tie ragged cross S=61 N=1000 k=64", lat_r[:, 128:189].contiguous(), lat_r, 64),
+    ):
+        u = torch.randint(-3, 4, (B, kv.shape[1], 64), generator=gen, device=dev).float()
+        v = torch.randint(-3, 4, (B, q.shape[1], 64), generator=gen, device=dev).float()
+        args = bwd_inputs(q, kv, u, v, k, gen, integer=True)
+        bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd(name, args, exact=True))
+        compare_bwd_stages(name, args)
+    # N=2000, F=40: a warp of the rows and keys kernels spans two rows (keys)
+    # and the last block is ragged; the kernels have no key tile
+    big = torch.randn((8, 2000, 3), generator=gen, device=dev)
+    args = bwd_inputs(big, big, torch.randn((8, 2000, 40), generator=gen, device=dev),
+                      torch.randn((8, 2000, 40), generator=gen, device=dev), 20, gen)
+    name = "N=2000, F=40: idle lanes, no key tile"
+    bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd(name, args))
+    compare_bwd_stages(name, args)
+    # N=32768 keys: the csr kernel's per-warp counts no longer fit beside its
+    # cursor, so one warp places every entry
+    kv = unit_clouds(2, 32768, gen, dev)
+    q = (kv[:, :64] + 0.05 * torch.randn((2, 64, 3), generator=gen, device=dev)).contiguous()
+    args = bwd_inputs(q, kv, torch.randn((2, 32768, 64), generator=gen, device=dev),
+                      torch.zeros((2, 64, 64), device=dev), 20, gen)
+    name = "cross S=64 N=32768 k=20: one csr warp"
+    bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd(name, args))
+    compare_bwd_stages(name, args)
+    return bwd_max_abs_err
+
+
+def time_edgeconv_bwd(gen, dev, entry):
+    """Times the backward (one call, its three kernels) at the forward's five
+    shapes at B=64, fed by one forward launch, beside its bound and the plain
+    backward, and adds them to ``entry``; then the kernels alone at the
+    N=4096 shapes and on a zero-padded cloud, where the plain backward's
+    (B, S, k, F) temporaries would not fit. At block 4 and at each N=4096
+    shape a ``torch.profiler`` run splits the call's time by kernel (csr,
+    rows, keys)."""
+    for shape in SHAPES:
+        args = bwd_inputs(*shape_inputs(shape, gen, dev), gen)
+        ms = timed_ms(lambda: edgeconv.edgeconv_reduce_bwd(*args), iters=10)
+        plain_ms = timed_ms(lambda: edgeconv.edgeconv_reduce_bwd_plain(*args), iters=3)
+        b_ms, b_by, nbytes, flops = bwd_bound(*args[:3])
+        print(f"  backward {shape[0]} (B={B}, S={args[0].shape[1]}, N={N_POINTS}, F={shape[3]}, "
+              f"k={shape[4]}): kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+        if b_by != "bytes":
+            fail(f"backward {shape[0]}: expected a bytes bound, got {b_by}")
+        entry["shapes"].append({"name": shape[0], "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": b_ms, "bound_by": b_by})
+        entry["ms"] += ms
+        entry["plain_ms"] += plain_ms
+        entry["bound_ms"] += b_ms
+        if shape[0] == "block4":
+            bwd_split(lambda: edgeconv.edgeconv_reduce_bwd(*args), "backward block4", ms)
+    del args
+    for shape, real in [(s, None) for s in LARGE_SHAPES] + [(SHAPES[0], 2048)]:
+        args = bwd_inputs(*shape_inputs(shape, gen, dev, N_LARGE, real=real), gen)
+        ms = timed_ms(lambda: edgeconv.edgeconv_reduce_bwd(*args), iters=5)
+        b_ms, b_by, nbytes, _ = bwd_bound(*args[:3])
+        name = f"{shape[0]} N={N_LARGE}" + ("" if real is None else f" zero-padded ({real} real)")
+        print(f"  backward {name} (B={B}, S={args[0].shape[1]}, F={shape[3]}, k={shape[4]}): "
+              f"kernels {ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB)",
+              flush=True)
+        bwd_split(lambda: edgeconv.edgeconv_reduce_bwd(*args), f"backward {name}", ms)
+    del args
+
+
 def main() -> None:
     global edgeconv, vector_attention, geometry_kernels
     if not torch.cuda.is_available():
@@ -1127,21 +1294,8 @@ def main() -> None:
           f"{MIN_SET_AGREEMENT}, agreeing rows to {REL_TOL} rel of max(|plain|,1)):", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def edgeconv_cases(bwd=False):
-        """(name, inputs) of the EdgeConv checks: the N=1024 shapes, the
-        ragged ones, the N=4096 ones (the backward's at ``LARGE_BWD_B``),
-        and zero-padded clouds at N=4096."""
-        for shape, n in [(s, N_POINTS) for s in SHAPES] + [(s, RAGGED_N) for s in RAGGED]:
-            yield shape[0], shape_inputs(shape, gen, dev, n)
-        for shape in LARGE_SHAPES:
-            b = LARGE_BWD_B.get(shape[0], B) if bwd else B
-            yield f"{shape[0]} N={N_LARGE}", shape_inputs(shape, gen, dev, N_LARGE, b=b)
-        for shape in (SHAPES[0], SHAPES[4]):
-            yield (f"{shape[0]} N={N_LARGE} zero-padded (2048 real)",
-                   shape_inputs(shape, gen, dev, N_LARGE, real=2048))
-
     max_abs_err = 0.0
-    for name, args in edgeconv_cases():
+    for name, args in edgeconv_cases(gen, dev):
         got = edgeconv.edgeconv_reduce(*args)
         want = edgeconv.edgeconv_reduce_plain(*args)
         torch.cuda.synchronize()
@@ -1175,33 +1329,7 @@ def main() -> None:
         fail("farthest_point_sample breaks argmax ties differently on the card")
     print("  fps argmax ties: the card matches the CPU", flush=True)
 
-    print(f"backward kernel vs plain (tolerance: {REL_TOL} of max(sum of the terms' "
-          "magnitudes, 1); exact ties bit for bit; two launches bit-identical):", flush=True)
-    bwd_max_abs_err = 0.0
-    for name, args in edgeconv_cases(bwd=True):
-        args = bwd_inputs(*args, gen)
-        if args[0].shape[0] != B:
-            name += f" B={args[0].shape[0]}"
-        bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd(name, args))
-    del args
-    # exact ties in a: lattice points with duplicates and integer values, so
-    # tied neighbours give equal a and every sum is exact
-    for name, q, kv, k in (
-        ("tie self k=20", lat, lat, 20),
-        ("tie cross k=64", lat[:, 128:192].contiguous(), lat, 64),
-        ("tie ragged self N=1000 k=20", lat_r, lat_r, 20),
-        ("tie ragged cross S=61 N=1000 k=64", lat_r[:, 128:189].contiguous(), lat_r, 64),
-    ):
-        u = torch.randint(-3, 4, (B, kv.shape[1], 64), generator=gen, device=dev).float()
-        v = torch.randint(-3, 4, (B, q.shape[1], 64), generator=gen, device=dev).float()
-        args = bwd_inputs(q, kv, u, v, k, gen, integer=True)
-        bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd(name, args, exact=True))
-    # N=2000 > the kernel's 1536-key tile: two tiles; F=40 leaves idle lanes
-    big = torch.randn((8, 2000, 3), generator=gen, device=dev)
-    args = bwd_inputs(big, big, torch.randn((8, 2000, 40), generator=gen, device=dev),
-                      torch.randn((8, 2000, 40), generator=gen, device=dev), 20, gen)
-    bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd("two key tiles N=2000 F=40", args))
-    del args, big
+    bwd_max_abs_err = check_edgeconv_bwd(gen, dev, lat, lat_r)
 
     print(f"vector-attention kernel vs plain (tolerance: sets agree on >= {MIN_SET_AGREEMENT}, "
           f"out/m/l on agreeing rows to {VA_REL_TOL} rel of max(|plain|,1)):", flush=True)
@@ -1337,22 +1465,7 @@ def main() -> None:
                  "launches": bwd_launches, "max_abs_err": bwd_max_abs_err, "ms": 0.0,
                  "plain_ms": 0.0, "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None,
                  "shapes": []}
-    for shape in SHAPES:
-        args = bwd_inputs(*shape_inputs(shape, gen, dev), gen)
-        ms = timed_ms(lambda: edgeconv.edgeconv_reduce_bwd(*args), iters=10)
-        plain_ms = timed_ms(lambda: edgeconv.edgeconv_reduce_bwd_plain(*args), iters=3)
-        b_ms, b_by, nbytes, flops = bwd_bound(*args[:3])
-        print(f"  backward {shape[0]} (B={B}, S={args[0].shape[1]}, N={N_POINTS}, F={shape[3]}, "
-              f"k={shape[4]}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
-              f"by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
-        if b_by != "bytes":
-            fail(f"backward {shape[0]}: expected a bytes bound, got {b_by}")
-        bwd_entry["shapes"].append({"name": shape[0], "ms": ms, "plain_ms": plain_ms,
-                                    "bound_ms": b_ms, "bound_by": b_by})
-        bwd_entry["ms"] += ms
-        bwd_entry["plain_ms"] += plain_ms
-        bwd_entry["bound_ms"] += b_ms
-    del args
+    time_edgeconv_bwd(gen, dev, bwd_entry)
 
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():

@@ -1,5 +1,5 @@
 // EdgeConv backward: replay of the edge activations, first-hit routing of
-// the max/min cotangents, and a deterministic scatter into dU.
+// the max/min cotangents, and a deterministic key-major sum into dU.
 //
 // Replaces the TPU kernel `_bwd_pallas` (sug_tpu/ops/edgeconv_pallas.py:589,
 // kernel bodies `_bwd_kernel` :292 and `_bwd_kernel_batched` :397), the
@@ -12,193 +12,335 @@
 //            selmin likewise with amin
 //   da_j   = damax*selmax + damin*selmin + ds1 + 2*a_j*ds2
 //   dv[b, s, f] = sum_j da_j;   du[b, n, f] = sum over (s, j) with idx_j == n
-// Inputs idx (B,S,k) int32; u (B,N,F); v, amax, amin, damax, damin, ds1, ds2
-// (B,S,F), all f32 contiguous. Outputs du (B,N,F) and dv (B,S,F) f32; every
-// element of both is written, so the caller need not zero them.
+// Inputs idx (B,S,k) int32 with entries in [0, N); u (B,N,F); v, amax, amin,
+// damax, damin, ds1, ds2 (B,S,F), all f32 contiguous. Outputs du (B,N,F) and
+// dv (B,S,F) f32; every element of both is written, so the caller need not
+// zero them. Scratch, allocated by the caller: offsets (B,N+1) and edges
+// (B,S*k) int32, jmax and jmin (B,S,F) uint8.
 //
 // What bounds it on an H100. Bytes: idx, u and the seven (B,S,F) inputs read
 // once, du and dv written once; at EdgeConv block 4 (B=64, S=N=1024, F=256,
 // k=20) that is ~676 MB, 0.20 ms at 3.35 TB/s. Operations: about 8 f32 ops
 // per edge and channel, 2.7 GFLOP there, 0.04 ms at 67 TFLOP/s. So the call
-// is bound by HBM bytes. This design is far from that bound: see below.
+// is bound by HBM bytes.
 //
-// Design (simple and right first; speed is later work):
-// - One warp per (cloud b, slice of 32 channels, tile of keys); lane f owns
-//   channel f of the slice. The warp walks the (s, j) entries of its cloud in
-//   order, replays a_j, keeps its first-hit flags and dv for the current s,
-//   and adds da_j into its own column of a shared-memory dU tile. No two lanes
-//   touch the same element and the order of the adds is fixed, so there is no
-//   atomic and dU is bit-identical from launch to launch.
-// - Latency: with one warp on an SM nothing else hides a load, so the rows
-//   are software-pipelined: while row s is replayed, row s+1's inputs and the
-//   gathers of its first 32 neighbours, and row s+2's neighbour ids, are in
-//   flight (the lanes load a row's ids together and share them by shuffle).
-// - The dU tile holds up to kKeyTile keys (N x 32 f32 = 128 KB at N=1024), so
-//   one block holds one warp and an SM runs one block. Clouds with more keys
-//   split into several tiles, each replaying every entry and keeping only the
-//   keys in its range; dv is written by the first tile.
-// Its parallelism is low: B * ceil(F/32) * tiles warps, 128 at B=64, F=64,
-// on 132 SMs of one warp each; every entry costs a dependent shared-memory
-// read-modify-write. A key-sorted (CSR) layout, or per-partition partials
-// summed in a fixed order, is the later speed work.
-// The kernel runs on the caller's stream, does not synchronise and allocates
-// nothing.
+// Design: three kernels on the caller's stream, none holding a dU tile,
+// none using a float atomic, with no key tile: at any N, csr reads idx three
+// times and rows and keys visit each edge once.
+// - csr: one block per cloud builds the key lists. A shared histogram of the
+//   N keys (integer atomics: a count does not depend on order) and a block
+//   scan give the offsets. Then the entries e = s*k + j are cut into up to
+//   32 contiguous segments, one per warp; each warp walks its segment in
+//   ascending e, 32 entries at a time, counting each key (uint16 counts in
+//   shared memory); a pass over the keys turns the counts into each
+//   segment's first slot after the earlier segments' entries; and each warp
+//   walks its segment again, placing: __match_any_sync gives each lane its
+//   rank among the lanes of its key, and the group's leader advances that
+//   key's slot. So each key's list is in ascending e, the same arrays every
+//   launch. Where two segments' counts do not fit beside the N-int cursor
+//   (N above about 29000) or a key has more than 65535 entries, one warp
+//   walks every entry with the cursor alone. The cursor bounds N at
+//   kMaxKeys, above what the forward's one distance row per query allows.
+// - rows: one thread per (b, s, f) replays a_j over j in order, writes dv as
+//   the sum of da_j in j order from 0, and the first j that hits amax (amin)
+//   as jmax (jmin), or k where none does (a NaN row, or a max taken
+//   elsewhere). The gathered u rows are F*4 contiguous bytes: loads coalesce
+//   over f.
+// - keys: one thread per (b, n, f) walks key n's list, forms a = u[n] + v[s]
+//   (the key's own u, no gather), da with the selections j == jmax[s] and
+//   j == jmin[s], and sums in list order from 0, writing du for every key (0
+//   for a key no query chose). Per entry and channel it reads v, ds1, ds2
+//   and the two uint8 (14 bytes, damax/damin only where selected), from L2
+//   while one cloud's rows are live.
+// Every grid is full: a thread per output element, as many warps as the SM
+// takes, in place of one warp per SM; no shared read-modify-write chain.
+// Since the lists are in ascending e, du adds each key's terms in (s, j)
+// order from 0.0f and dv each query's in j order, as the earlier one-pass
+// kernel that walked the entries in order did: both are bit for bit what it
+// gave, and every launch gives the same bits.
+// A zero-padded cloud makes hub keys: every padded query's k nearest keys
+// are the same k lowest-index padded points, so a few keys hold thousands of
+// entries; their threads walk long lists while the rest of the grid runs on.
+// The kernels allocate nothing and do not synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarp = 32;
-constexpr int kKeyTile = 1536;  // 1536 keys x 32 lanes x 4 B = 192 KB of shared memory
+constexpr int kCsrThreads = 1024;
+constexpr int kThreads = 256;           // rows and keys kernels
+constexpr int kBatch = 8;               // chunks of 32 entries loaded ahead by the csr walk
+constexpr int kSmemBytes = 227 * 1024 - 256;  // dynamic shared memory of a csr block
+// the launcher's limits, which ops/edgeconv.py checks before it launches
+constexpr int kMaxKeys = 56 * 1024;     // a 224 KB cursor
+constexpr int kMaxK = 255;              // jmax and jmin are uint8, k meaning "no hit"
 
-// One query row's per-channel inputs.
-struct Row {
-  float v, mx, mn, gmax, gmin, g1, g2;
-};
-
-__device__ __forceinline__ Row load_row(const float* __restrict__ v,
-                                        const float* __restrict__ amax,
-                                        const float* __restrict__ amin,
-                                        const float* __restrict__ damax,
-                                        const float* __restrict__ damin,
-                                        const float* __restrict__ ds1,
-                                        const float* __restrict__ ds2, size_t row,
-                                        bool active) {
-  Row r = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-  if (active) {
-    r.v = v[row]; r.mx = amax[row]; r.mn = amin[row];
-    r.gmax = damax[row]; r.gmin = damin[row]; r.g1 = ds1[row]; r.g2 = ds2[row];
-  }
-  return r;
+// The max/min cotangent on the selected entries plus the sum terms, in the
+// Pallas kernel's order: damax*selmax + damin*selmin + ds1 + 2*a*ds2. Each
+// operation rounds on its own (__fadd_rn, __fmul_rn are never contracted).
+__device__ __forceinline__ float edge_cotangent(float a, float gmax, float gmin, float g1,
+                                                float g2) {
+  return __fadd_rn(__fadd_rn(__fadd_rn(gmax, gmin), g1), __fmul_rn(__fmul_rn(2.0f, a), g2));
 }
 
-// Lane jj's neighbour id (held by lane jj of the warp) gathers u[n, f] into
-// val[jj], for the first cnt neighbours of a chunk.
-__device__ __forceinline__ void gather(float (&val)[kWarp], int my_n, int cnt,
-                                       const float* __restrict__ u_b, int F, int f,
-                                       bool active) {
-#pragma unroll
-  for (int jj = 0; jj < kWarp; ++jj) {
-    const int n = __shfl_sync(0xffffffffu, my_n, jj);
-    val[jj] = (active && jj < cnt) ? u_b[(size_t)n * F + f] : 0.0f;
-  }
+// The ints that n_seg uint16 counts of N keys take.
+__host__ __device__ __forceinline__ int seg_words(int n_seg, int N) {
+  return (int)(((long long)n_seg * N + 1) / 2);
 }
 
-__global__ void edgeconv_bwd_kernel(const int* __restrict__ idx,
-                                    const float* __restrict__ u,
-                                    const float* __restrict__ v,
-                                    const float* __restrict__ amax,
-                                    const float* __restrict__ amin,
-                                    const float* __restrict__ damax,
-                                    const float* __restrict__ damin,
-                                    const float* __restrict__ ds1,
-                                    const float* __restrict__ ds2,
-                                    float* __restrict__ du,
-                                    float* __restrict__ dv,
-                                    int S, int N, int F, int k,
-                                    int n_slices, int key_tile) {
-  extern __shared__ float du_tile[];  // [key_tile][kWarp]
-  const int lane = threadIdx.x;
-  const int slice = blockIdx.x % n_slices;
-  const int tile = blockIdx.x / n_slices;
-  const int b = blockIdx.y;
-  const int f = slice * kWarp + lane;
-  // lanes past F take part in the shuffles but load and store nothing global
-  const bool active = f < F;
-  const int n0 = tile * key_tile;
-  const int nk = min(key_tile, N - n0);
-
-  for (int n = 0; n < nk; ++n) du_tile[n * kWarp + lane] = 0.0f;
-
-  const int* idx_b = idx + (size_t)b * S * k;
-  const float* u_b = u + (size_t)b * N * F;
-  const size_t row0 = (size_t)b * S * F + f;
-  // a row's first chunk of neighbours: lane j holds neighbour j
-  const int first_cnt = min(k, kWarp);
-  auto first_ids = [&](int s) { return (s < S && lane < first_cnt) ? idx_b[(size_t)s * k + lane] : 0; };
-
-  // software pipeline: row s is replayed while row s+1's inputs and first
-  // gathers and row s+2's neighbour ids are in flight
-  int ids_cur = first_ids(0), ids_next = first_ids(1);
-  float val_cur[kWarp], val_next[kWarp];
-  gather(val_cur, ids_cur, first_cnt, u_b, F, f, active);
-  Row cur = load_row(v, amax, amin, damax, damin, ds1, ds2, row0, active);
-  for (int s = 0; s < S; ++s) {
-    const bool more = s + 1 < S;
-    Row next = load_row(v, amax, amin, damax, damin, ds1, ds2, row0 + (size_t)(s + 1) * F,
-                        active && more);
-    gather(val_next, ids_next, more ? first_cnt : 0, u_b, F, f, active);
-    const int ids_after = first_ids(s + 2);
-
-    bool hit_max = false, hit_min = false;
-    float dvs = 0.0f;
-    for (int j0 = 0; j0 < k; j0 += kWarp) {
-      const int cnt = min(kWarp, k - j0);
-      int my_n = ids_cur;
-      if (j0 > 0) {  // k > 32: the later chunks are loaded here
-        my_n = lane < cnt ? idx_b[(size_t)s * k + j0 + lane] : 0;
-        gather(val_cur, my_n, cnt, u_b, F, f, active);
-      }
+// Walks the entries [e0, e1) of a cloud in ascending e, 32 at a time, with
+// kBatch chunks of ids in flight ahead of the chunk being visited. For each
+// chunk every lane calls group(n, e, peers, rank): n its key (-1 past e1),
+// peers the lanes of the chunk with the same key, rank its place among them.
+template <class Group>
+__device__ __forceinline__ void walk_entries(const int* __restrict__ idx_b, int e0, int e1,
+                                             int lane, Group group) {
+  int cur[kBatch], nxt[kBatch];
 #pragma unroll
-      for (int jj = 0; jj < kWarp; ++jj) {
-        if (jj < cnt) {  // uniform across the warp
-          const int n = __shfl_sync(0xffffffffu, my_n, jj);
-          // the same single f32 add as the forward: __fadd_rn is never contracted
-          const float a = __fadd_rn(val_cur[jj], cur.v);
-          const bool sel_max = !hit_max && a == cur.mx;
-          const bool sel_min = !hit_min && a == cur.mn;
-          hit_max |= sel_max;
-          hit_min |= sel_min;
-          // the Pallas kernel's order: damax*selmax + damin*selmin + ds1 + 2*a*ds2
-          const float da = __fadd_rn(
-              __fadd_rn(__fadd_rn(sel_max ? cur.gmax : 0.0f, sel_min ? cur.gmin : 0.0f), cur.g1),
-              __fmul_rn(__fmul_rn(2.0f, a), cur.g2));
-          dvs += da;
-          const int m = n - n0;
-          if (m >= 0 && m < nk) du_tile[m * kWarp + lane] += da;
-        }
-      }
+  for (int i = 0; i < kBatch; ++i) {
+    const int e = e0 + i * kWarp + lane;
+    cur[i] = e < e1 ? idx_b[e] : -1;
+  }
+  for (int base = e0; base < e1; base += kBatch * kWarp) {
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) {
+      const int e = base + (kBatch + i) * kWarp + lane;
+      nxt[i] = e < e1 ? idx_b[e] : -1;
     }
-    if (active && tile == 0) dv[row0 + (size_t)s * F] = dvs;
-
-    cur = next;
-    ids_cur = ids_next;
-    ids_next = ids_after;
 #pragma unroll
-    for (int jj = 0; jj < kWarp; ++jj) val_cur[jj] = val_next[jj];
+    for (int i = 0; i < kBatch; ++i) {
+      if (base + i * kWarp >= e1) break;  // uniform across the warp
+      const unsigned peers = __match_any_sync(kFull, cur[i]);
+      group(cur[i], base + i * kWarp + lane, peers, __popc(peers & ((1u << lane) - 1u)));
+      __syncwarp();  // this chunk's shared writes before the next chunk's reads
+    }
+#pragma unroll
+    for (int i = 0; i < kBatch; ++i) cur[i] = nxt[i];
   }
+}
 
-  if (!active) return;
-  float* du_b = du + ((size_t)b * N + n0) * F + f;
-  for (int n = 0; n < nk; ++n) du_b[(size_t)n * F] = du_tile[n * kWarp + lane];
+// Key n's group in a chunk takes the next popc(peers) slots of its list:
+// the group's leader reads and advances slot[n], the others get it by
+// shuffle; each lane writes its entry at base[n] + slot + rank.
+template <class Slot>
+__device__ __forceinline__ void place(int n, int e, unsigned peers, int rank, Slot* slot,
+                                      const int* base, int* __restrict__ edges_b) {
+  const int leader = __ffs(peers) - 1;
+  int p = 0;
+  if (rank == 0 && n >= 0) {
+    p = slot[n];
+    slot[n] = (Slot)(p + __popc(peers));
+  }
+  p = __shfl_sync(kFull, p, leader);
+  if (n >= 0) edges_b[(base ? base[n] : 0) + p + rank] = e;
+}
+
+__global__ void __launch_bounds__(kCsrThreads)
+edgeconv_bwd_csr_kernel(const int* __restrict__ idx, int* __restrict__ offsets,
+                        int* __restrict__ edges, int S, int N, int k, int n_seg) {
+  // cursor [N]: counts, then offsets; seg [n_seg][N] (when n_seg > 1): each
+  // segment's count of each key, then its first slot in the key's list
+  extern __shared__ int cursor[];
+  uint16_t* seg = reinterpret_cast<uint16_t*>(cursor + N);
+  __shared__ int warp_total[kCsrThreads / kWarp];
+  const int t = threadIdx.x, lane = t % kWarp, warp = t / kWarp;
+  const int E = S * k;
+  const int* idx_b = idx + (size_t)blockIdx.x * E;
+  int* off_b = offsets + (size_t)blockIdx.x * (N + 1);
+  int* edges_b = edges + (size_t)blockIdx.x * E;
+
+  for (int n = t; n < N; n += kCsrThreads) cursor[n] = 0;
+  if (n_seg > 1) {
+    for (int i = t; i < seg_words(n_seg, N); i += kCsrThreads) cursor[N + i] = 0;
+  }
+  __syncthreads();
+  for (int e = t; e < E; e += kCsrThreads) atomicAdd(&cursor[idx_b[e]], 1);
+  __syncthreads();
+
+  // exclusive scan of the counts: thread t owns keys [lo, hi)
+  const int per = (N + kCsrThreads - 1) / kCsrThreads;
+  const int lo = min(N, t * per), hi = min(N, lo + per);
+  int own = 0;
+  bool wide = false;  // a key whose count a uint16 segment slot cannot hold
+  for (int n = lo; n < hi; ++n) {
+    own += cursor[n];
+    wide |= cursor[n] > 0xffff;
+  }
+  int incl = own;
+#pragma unroll
+  for (int d = 1; d < kWarp; d <<= 1) {
+    const int y = __shfl_up_sync(kFull, incl, d);
+    if (lane >= d) incl += y;
+  }
+  if (lane == kWarp - 1) warp_total[warp] = incl;
+  wide = __syncthreads_or(wide);
+  if (warp == 0) {
+    const int w = warp_total[lane];
+    int wi = w;
+#pragma unroll
+    for (int d = 1; d < kWarp; d <<= 1) {
+      const int y = __shfl_up_sync(kFull, wi, d);
+      if (lane >= d) wi += y;
+    }
+    warp_total[lane] = wi - w;
+  }
+  __syncthreads();
+  int run = warp_total[warp] + incl - own;
+  for (int n = lo; n < hi; ++n) {
+    const int c = cursor[n];
+    cursor[n] = run;
+    off_b[n] = run;
+    run += c;
+  }
+  if (t == 0) off_b[N] = E;
+  __syncthreads();
+
+  if (n_seg == 1 || wide) {
+    // one warp walks every entry; cursor[n] is key n's next slot
+    if (warp == 0) {
+      walk_entries(idx_b, 0, E, lane, [&](int n, int e, unsigned peers, int rank) {
+        place(n, e, peers, rank, cursor, static_cast<const int*>(nullptr), edges_b);
+      });
+    }
+    return;
+  }
+  // warp w < n_seg owns the entries [w * len, (w + 1) * len): it counts each
+  // key there, a pass over the keys turns the counts into each segment's
+  // first slot after the earlier segments' entries, and each warp then
+  // places its own entries in order
+  const int len = (E + n_seg - 1) / n_seg;
+  const int e0 = min(E, warp * len), e1 = min(E, e0 + len);
+  uint16_t* my_seg = seg + (size_t)warp * N;
+  if (warp < n_seg) {
+    walk_entries(idx_b, e0, e1, lane, [&](int n, int, unsigned peers, int rank) {
+      if (rank == 0 && n >= 0) my_seg[n] = (uint16_t)(my_seg[n] + __popc(peers));
+    });
+  }
+  __syncthreads();
+  for (int n = t; n < N; n += kCsrThreads) {
+    int before = 0;
+    for (int w = 0; w < n_seg; ++w) {
+      const int c = seg[(size_t)w * N + n];
+      seg[(size_t)w * N + n] = (uint16_t)before;
+      before += c;
+    }
+  }
+  __syncthreads();
+  if (warp < n_seg) {
+    walk_entries(idx_b, e0, e1, lane, [&](int n, int e, unsigned peers, int rank) {
+      place(n, e, peers, rank, my_seg, static_cast<const int*>(cursor), edges_b);
+    });
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+edgeconv_bwd_rows_kernel(const int* __restrict__ idx, const float* __restrict__ u,
+                         const float* __restrict__ v, const float* __restrict__ amax,
+                         const float* __restrict__ amin, const float* __restrict__ damax,
+                         const float* __restrict__ damin, const float* __restrict__ ds1,
+                         const float* __restrict__ ds2, float* __restrict__ dv,
+                         uint8_t* __restrict__ jmax, uint8_t* __restrict__ jmin, int S, int N,
+                         int F, int k) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;  // s * F + f within cloud b
+  if (g >= S * F) return;
+  const int b = blockIdx.y;
+  const int s = g / F, f = g - s * F;
+  const size_t r = (size_t)b * S * F + g;
+  const int* ids = idx + ((size_t)b * S + s) * k;
+  const float* u_b = u + (size_t)b * N * F + f;
+  const float vv = v[r], mx = amax[r], mn = amin[r];
+  const float gmax = damax[r], gmin = damin[r], g1 = ds1[r], g2 = ds2[r];
+  int jmx = k, jmn = k;
+  float dvs = 0.0f;
+#pragma unroll 4
+  for (int j = 0; j < k; ++j) {
+    // the same single f32 add as the forward
+    const float a = __fadd_rn(u_b[(size_t)ids[j] * F], vv);
+    const bool sel_max = jmx == k && a == mx;
+    const bool sel_min = jmn == k && a == mn;
+    if (sel_max) jmx = j;
+    if (sel_min) jmn = j;
+    dvs = __fadd_rn(dvs, edge_cotangent(a, sel_max ? gmax : 0.0f, sel_min ? gmin : 0.0f, g1, g2));
+  }
+  dv[r] = dvs;
+  jmax[r] = (uint8_t)jmx;
+  jmin[r] = (uint8_t)jmn;
+}
+
+__global__ void __launch_bounds__(kThreads)
+edgeconv_bwd_keys_kernel(const int* __restrict__ offsets, const int* __restrict__ edges,
+                         const float* __restrict__ u, const float* __restrict__ v,
+                         const uint8_t* __restrict__ jmax, const uint8_t* __restrict__ jmin,
+                         const float* __restrict__ damax, const float* __restrict__ damin,
+                         const float* __restrict__ ds1, const float* __restrict__ ds2,
+                         float* __restrict__ du, int S, int N, int F, int k) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;  // n * F + f within cloud b
+  if (g >= N * F) return;
+  const int b = blockIdx.y;
+  const int n = g / F, f = g - n * F;
+  const int* off_b = offsets + (size_t)b * (N + 1);
+  const int* edges_b = edges + (size_t)b * S * k;
+  const size_t row0 = (size_t)b * S * F + f;
+  const size_t out = (size_t)b * N * F + g;
+  const float un = u[out];
+  const int end = off_b[n + 1];
+  float acc = 0.0f;
+#pragma unroll 4
+  for (int p = off_b[n]; p < end; ++p) {
+    const int e = edges_b[p];
+    const int s = e / k, j = e - s * k;
+    const size_t r = row0 + (size_t)s * F;
+    const float a = __fadd_rn(un, v[r]);
+    const float gmax = j == jmax[r] ? damax[r] : 0.0f;
+    const float gmin = j == jmin[r] ? damin[r] : 0.0f;
+    acc = __fadd_rn(acc, edge_cotangent(a, gmax, gmin, ds1[r], ds2[r]));
+  }
+  du[out] = acc;
+}
+
+// The csr kernel's segments: as many warps (up to the block's 32) as have a
+// uint16 count of every key beside the N-int cursor in shared memory.
+int csr_segments(int N) {
+  const long long fit = ((long long)kSmemBytes - (long long)sizeof(int) * (N + 1)) /
+                        ((long long)sizeof(uint16_t) * N);
+  return (int)(fit < 1 ? 1 : fit > kCsrThreads / kWarp ? kCsrThreads / kWarp : fit);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream`. Returns a cudaError_t:
-// cudaErrorInvalidValue when the shapes are out of range, otherwise
-// cudaGetLastError() after the launch.
+// Launches the three kernels in turn on `stream`. Returns a cudaError_t:
+// cudaErrorInvalidValue when the shapes are out of range (k above 255 or N
+// above kMaxKeys among them), otherwise the first error of the launches.
 int edgeconv_bwd(const int* idx, const float* u, const float* v, const float* amax,
                  const float* amin, const float* damax, const float* damin,
-                 const float* ds1, const float* ds2, float* du, float* dv,
-                 int B, int S, int N, int F, int k, void* stream) {
-  if (B < 1 || S < 1 || N < 1 || F < 1 || k < 1 || k > N || B > 65535) {
+                 const float* ds1, const float* ds2, float* du, float* dv, int* offsets,
+                 int* edges, uint8_t* jmax, uint8_t* jmin, int B, int S, int N, int F, int k,
+                 void* stream) {
+  if (B < 1 || S < 1 || N < 1 || F < 1 || k < 1 || k > N || B > 65535 || k > kMaxK ||
+      N > kMaxKeys || (long long)S * k > INT32_MAX || (long long)S * F > INT32_MAX ||
+      (long long)N * F > INT32_MAX) {
     return (int)cudaErrorInvalidValue;
   }
-  const int n_slices = (F + kWarp - 1) / kWarp;
-  const int n_tiles = (N + kKeyTile - 1) / kKeyTile;
-  const int key_tile = min(N, kKeyTile);
-  const size_t smem = sizeof(float) * (size_t)key_tile * kWarp;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int n_seg = csr_segments(N);
+  const size_t smem = sizeof(int) * ((size_t)N + (n_seg > 1 ? seg_words(n_seg, N) : 0));
   cudaError_t err = cudaFuncSetAttribute(
-      edgeconv_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      edgeconv_bwd_csr_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_slices * n_tiles, B);
-  edgeconv_bwd_kernel<<<grid, kWarp, smem, (cudaStream_t)stream>>>(
-      idx, u, v, amax, amin, damax, damin, ds1, ds2, du, dv, S, N, F, k, n_slices,
-      key_tile);
+  edgeconv_bwd_csr_kernel<<<B, kCsrThreads, smem, st>>>(idx, offsets, edges, S, N, k, n_seg);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 rows_grid((S * F + kThreads - 1) / kThreads, B);
+  edgeconv_bwd_rows_kernel<<<rows_grid, kThreads, 0, st>>>(
+      idx, u, v, amax, amin, damax, damin, ds1, ds2, dv, jmax, jmin, S, N, F, k);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const dim3 keys_grid((N * F + kThreads - 1) / kThreads, B);
+  edgeconv_bwd_keys_kernel<<<keys_grid, kThreads, 0, st>>>(
+      offsets, edges, u, v, jmax, jmin, damax, damin, ds1, ds2, du, S, N, F, k);
   return (int)cudaGetLastError();
 }
 

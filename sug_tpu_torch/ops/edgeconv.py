@@ -10,10 +10,15 @@ counterpart of the TPU kernel behind ``fused_edgeconv_reduce`` and
 
 ``edgeconv_reduce_bwd`` is its backward, the counterpart of ``_bwd_pallas``:
 it replays ``a_j`` from idx, routes the max/min cotangents to the first j
-(in idx order) whose ``a_j`` equals amax/amin, and returns dU (scattered over
-keys) and dV (summed per query). ``EdgeConvReduce`` joins the two in one
-``torch.autograd.Function``, as ``_fused_cross`` does with its custom VJP;
-``fused_edgeconv_reduce`` and ``fused_cross_edgeconv_reduce`` call it.
+(in idx order) whose ``a_j`` equals amax/amin, and returns dU (summed over
+each key's entries) and dV (summed per query). On the card it runs as three
+kernels: ``csr`` (each cloud's key lists, in ascending entry id), ``rows``
+(dV and the first-hit positions, query-major) and ``keys`` (dU, key-major);
+``key_csr_plain``, ``first_hits_plain`` and ``du_by_key_plain`` are their
+plain versions, in the kernels' order of adds. ``EdgeConvReduce`` joins the
+forward and backward in one ``torch.autograd.Function``, as ``_fused_cross``
+does with its custom VJP; ``fused_edgeconv_reduce`` and
+``fused_cross_edgeconv_reduce`` call it.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor
 it launches its hand-written kernel (``csrc/edgeconv_fwd.cu``,
@@ -32,6 +37,11 @@ from sug_tpu_torch.ops.geometry import cross_knn_indices, index_points
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 _CUDA_ERROR_INVALID_VALUE = 1
+# the backward kernels' limits (kMaxK and kMaxKeys in csrc/edgeconv_bwd.cu):
+# jmax and jmin are uint8, with k meaning "no hit"; the csr kernel's cursor
+# holds N ints of shared memory
+MAX_BWD_K = 255
+MAX_BWD_KEYS = 56 * 1024
 
 
 def edgeconv_reduce_plain(q, kv, u, v, k: int) -> Outputs:
@@ -114,6 +124,12 @@ def edgeconv_reduce(q, kv, u, v, k: int) -> Outputs:
 edgeconv_reduce.launches = 0
 
 
+def _edge_cotangent(a, sel_max, sel_min, damax, damin, ds1, ds2):
+    """da = damax*selmax + damin*selmin + ds1 + 2*a*ds2, in the Pallas
+    kernel's order of operations."""
+    return damax * sel_max + damin * sel_min + ds1 + 2.0 * a * ds2
+
+
 def edge_cotangents(idx, u, v, amax, amin, damax, damin, ds1, ds2) -> torch.Tensor:
     """The per-edge cotangents ``da`` (B, S, k, F) of the backward: the
     replayed ``a``, the max/min cotangents on the first j (in idx order)
@@ -123,8 +139,8 @@ def edge_cotangents(idx, u, v, amax, amin, damax, damin, ds1, ds2) -> torch.Tens
     hit_min = a == amin[:, :, None, :]
     sel_max = hit_max & (torch.cumsum(hit_max, dim=2) == 1)
     sel_min = hit_min & (torch.cumsum(hit_min, dim=2) == 1)
-    return (damax[:, :, None, :] * sel_max + damin[:, :, None, :] * sel_min
-            + ds1[:, :, None, :] + 2.0 * a * ds2[:, :, None, :])
+    return _edge_cotangent(a, sel_max, sel_min,
+                           *(t[:, :, None, :] for t in (damax, damin, ds1, ds2)))
 
 
 def scatter_keys(da: torch.Tensor, idx: torch.Tensor, n_keys: int) -> torch.Tensor:
@@ -164,24 +180,105 @@ def _check_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2) -> None:
                              f"got {tuple(t.shape)}")
 
 
+def key_csr_plain(idx: torch.Tensor, n_keys: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each cloud's key lists, the plain version of the ``csr`` kernel: from
+    idx (B,S,k), offsets (B, n_keys+1) and edges (B, S*k) int32, where key
+    n's list ``edges[b, offsets[b, n]:offsets[b, n+1]]`` holds the entry ids
+    e = s*k + j with ``idx[b, s, j] == n``, in ascending e."""
+    B = idx.shape[0]
+    flat = idx.reshape(B, -1).long()
+    edges = torch.sort(flat, dim=1, stable=True).indices.to(torch.int32)
+    counts = torch.zeros((B, n_keys), dtype=torch.long, device=idx.device)
+    counts.scatter_add_(1, flat, torch.ones_like(flat))
+    offsets = torch.zeros((B, n_keys + 1), dtype=torch.long, device=idx.device)
+    offsets[:, 1:] = torch.cumsum(counts, dim=1)
+    return offsets.to(torch.int32), edges
+
+
+def _first_hit(hit: torch.Tensor) -> torch.Tensor:
+    """The first j along dim 2 where ``hit`` is set, k where none is: the
+    count of leading misses."""
+    return (torch.cumsum(hit, dim=2) == 0).sum(dim=2)
+
+
+def first_hits_plain(idx, u, v, amax, amin, damax, damin, ds1, ds2):
+    """The plain version of the ``rows`` kernel: jmax and jmin (B,S,F) uint8,
+    the first j whose replayed ``a_j`` equals amax (amin), k where none does,
+    and dv (B,S,F), the edge cotangents summed in j order from 0."""
+    a = index_points(u, idx) + v[:, :, None, :]  # the forward's single f32 add
+    jmax = _first_hit(a == amax[:, :, None, :])
+    jmin = _first_hit(a == amin[:, :, None, :])
+    dv = torch.zeros_like(v)
+    for j in range(idx.shape[2]):
+        dv = dv + _edge_cotangent(a[:, :, j], jmax == j, jmin == j, damax, damin, ds1, ds2)
+    return jmax.to(torch.uint8), jmin.to(torch.uint8), dv
+
+
+def du_by_key_plain(offsets, edges, u, v, jmax, jmin, damax, damin, ds1, ds2, k: int):
+    """The plain version of the ``keys`` kernel: du (B,N,F), each key's edge
+    cotangents summed in the order of its list from 0. The lists are walked
+    column by column up to the longest, L: L steps over (B, N, F)."""
+    F = u.shape[-1]
+    start, count = offsets[:, :-1].long(), (offsets[:, 1:] - offsets[:, :-1]).long()
+
+    def rows(t, s):  # t[b, s[b, n], :] for each key n
+        return torch.gather(t, 1, s[:, :, None].expand(-1, -1, F))
+
+    du = torch.zeros_like(u)
+    for col in range(int(count.max().item()) if count.numel() else 0):
+        live = col < count  # (B, N)
+        e = torch.gather(edges.long(), 1, torch.where(live, start + col, 0))
+        s, j = e // k, (e % k)[:, :, None]
+        a = u + rows(v, s)
+        da = _edge_cotangent(a, rows(jmax, s).long() == j, rows(jmin, s).long() == j,
+                             *(rows(t, s) for t in (damax, damin, ds1, ds2)))
+        du = torch.where(live[:, :, None], du + da, du)
+    return du
+
+
+def edgeconv_reduce_bwd_stages_plain(idx, u, v, amax, amin, damax, damin, ds1, ds2):
+    """The three plain versions in turn, as the kernels run: du, dv, offsets,
+    edges, jmax, jmin, in the layout of ``edgeconv_reduce_bwd_stages``."""
+    offsets, edges = key_csr_plain(idx, u.shape[1])
+    jmax, jmin, dv = first_hits_plain(idx, u, v, amax, amin, damax, damin, ds1, ds2)
+    du = du_by_key_plain(offsets, edges, u, v, jmax, jmin, damax, damin, ds1, ds2, idx.shape[2])
+    return du, dv, offsets, edges, jmax, jmin
+
+
+def check_bwd_kernel_limits(B: int, S: int, N: int, F: int, k: int) -> None:
+    """Raises ValueError, with the shape, where the backward kernels cannot
+    run: k above ``MAX_BWD_K``, N above ``MAX_BWD_KEYS``, or more than 65535
+    clouds (one csr block each, the rows and keys grids' y)."""
+    if k > MAX_BWD_K or N > MAX_BWD_KEYS or B > 65535:
+        raise ValueError(f"edgeconv_reduce_bwd: the kernels take k <= {MAX_BWD_K}, N <= "
+                         f"{MAX_BWD_KEYS} and B <= 65535; got B={B}, S={S}, N={N}, F={F}, k={k}")
+
+
 def _launch_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2):
-    lib = cuda_build.library("edgeconv_bwd", "edgeconv_bwd_error_string", 11, 5)
+    """Launches the backward's three kernels; returns du, dv and the scratch
+    (offsets, edges, jmax, jmin)."""
     B, S, k = idx.shape
     N, F = u.shape[1], u.shape[2]
-    du = torch.empty_like(u)  # the kernel writes every element
+    check_bwd_kernel_limits(B, S, N, F, k)
+    lib = cuda_build.library("edgeconv_bwd", "edgeconv_bwd_error_string", 15, 5)
+    du = torch.empty_like(u)  # the kernels write every element
     dv = torch.empty_like(v)
+    offsets = torch.empty((B, N + 1), dtype=torch.int32, device=idx.device)
+    edges = torch.empty((B, S * k), dtype=torch.int32, device=idx.device)
+    jmax, jmin = (torch.empty((B, S, F), dtype=torch.uint8, device=idx.device) for _ in range(2))
     with torch.cuda.device(idx.device):
         stream = torch.cuda.current_stream(idx.device).cuda_stream
         err = lib.edgeconv_bwd(
             idx.data_ptr(), u.data_ptr(), v.data_ptr(), amax.data_ptr(), amin.data_ptr(),
             damax.data_ptr(), damin.data_ptr(), ds1.data_ptr(), ds2.data_ptr(),
-            du.data_ptr(), dv.data_ptr(), B, S, N, F, k, stream,
+            du.data_ptr(), dv.data_ptr(), offsets.data_ptr(), edges.data_ptr(),
+            jmax.data_ptr(), jmin.data_ptr(), B, S, N, F, k, stream,
         )
     if err != 0:
         msg = lib.edgeconv_bwd_error_string(err).decode()
         raise RuntimeError(f"edgeconv_bwd launch failed: {msg} (B={B}, S={S}, N={N}, F={F}, k={k})")
     edgeconv_reduce_bwd.launches += 1
-    return du, dv
+    return du, dv, (offsets, edges, jmax, jmin)
 
 
 def edgeconv_reduce_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2):
@@ -190,9 +287,9 @@ def edgeconv_reduce_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2):
     cotangents (B,S,F), all f32 contiguous; returns du (B,N,F) and dv
     (B,S,F).
 
-    CPU tensors go to the plain version, CUDA tensors to the kernel; a build
-    or launch failure raises. ``edgeconv_reduce_bwd.launches`` counts kernel
-    launches.
+    CPU tensors go to the plain version, CUDA tensors to the kernels; a build
+    or launch failure raises. One call launches the three kernels ``csr``,
+    ``rows`` and ``keys``; ``edgeconv_reduce_bwd.launches`` counts calls.
     """
     args = (idx, u, v, amax, amin, damax, damin, ds1, ds2)
     _check_bwd(*args)
@@ -200,7 +297,19 @@ def edgeconv_reduce_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2):
         return edgeconv_reduce_bwd_plain(*args)
     if idx.device.type != "cuda":
         raise ValueError(f"edgeconv_reduce_bwd: no path for device {idx.device}")
-    return _launch_bwd(*args)
+    return _launch_bwd(*args)[:2]
+
+
+def edgeconv_reduce_bwd_stages(idx, u, v, amax, amin, damax, damin, ds1, ds2):
+    """The backward kernels' outputs, for checking each against its plain
+    version: du, dv, then offsets and edges (``csr``), jmax and jmin
+    (``rows``). CUDA tensors only."""
+    args = (idx, u, v, amax, amin, damax, damin, ds1, ds2)
+    _check_bwd(*args)
+    if idx.device.type != "cuda":
+        raise ValueError(f"edgeconv_reduce_bwd_stages: needs CUDA tensors, got {idx.device}")
+    du, dv, scratch = _launch_bwd(*args)
+    return (du, dv, *scratch)
 
 
 edgeconv_reduce_bwd.launches = 0

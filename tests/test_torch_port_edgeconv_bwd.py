@@ -14,7 +14,15 @@ compared on tie-free inputs only; on duplicate
 points with integer values, where ``a`` ties exactly and every sum is exact,
 the first-hit routing must match the Pallas kernel to 1e-6.
 
-The CUDA kernel cannot run here; ``chip_smoke.py`` holds it against the
+The kernels' own plain versions run here too: ``key_csr_plain`` (each
+cloud's key lists, stable), ``first_hits_plain`` (dV and the first-hit
+positions, query-major) and ``du_by_key_plain`` (dU, key-major, in list
+order) together make the ``key-major`` port below, held to the same
+references. ``du_by_key_plain`` must also equal, bit for bit, a numpy loop
+that walks the entries (s, j) in order and adds into dU from 0 in f32: the
+order of adds the CUDA kernels repeat.
+
+The CUDA kernels cannot run here; ``chip_smoke.py`` holds each against its
 plain version on the card.
 """
 
@@ -116,7 +124,21 @@ def _port_autograd(q, kv, u, v, cot, k):
     return du.numpy(), dv.numpy()
 
 
-@pytest.mark.parametrize("port", [_port_plain, _port_autograd], ids=["plain", "autograd"])
+def _port_key_major(q, kv, u, v, cot, k):
+    """The three plain versions of the kernels in turn on the outputs of the
+    port's forward."""
+    tq, tkv, tu, tv = (torch.from_numpy(a) for a in (q, kv, u, v))
+    amax, amin, _, _, idx = te.edgeconv_reduce(tq, tkv, tu, tv, k)
+    du, dv = te.edgeconv_reduce_bwd_stages_plain(idx, tu, tv, amax, amin,
+                                                 *(torch.from_numpy(w) for w in cot))[:2]
+    return du.numpy(), dv.numpy()
+
+
+PORTS = [_port_plain, _port_autograd, _port_key_major]
+PORT_IDS = ["plain", "autograd", "key-major"]
+
+
+@pytest.mark.parametrize("port", PORTS, ids=PORT_IDS)
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)
 def test_backward_matches_reference_grad(shape, port):
     b, s, n, c, f, k, cross = shape
@@ -133,7 +155,7 @@ def _pallas_grads(shape, seed):
     return _jax_grads(_pallas(cross), q, kv, u, v, cot, k)
 
 
-@pytest.mark.parametrize("port", [_port_plain, _port_autograd], ids=["plain", "autograd"])
+@pytest.mark.parametrize("port", PORTS, ids=PORT_IDS)
 @pytest.mark.parametrize("shape", SHAPES, ids=IDS)
 def test_backward_matches_pallas_interpret(shape, port):
     b, s, n, c, f, k, cross = shape
@@ -142,12 +164,9 @@ def test_backward_matches_pallas_interpret(shape, port):
         _assert_close(g, w, name)
 
 
-@pytest.mark.parametrize("cross", [False, True], ids=["self", "sa-node"])
-def test_first_hit_routing_on_exact_ties(cross):
-    """Points 64 and 65 duplicate point 0, values included, and u, v and the
-    cotangents are small integers: the replayed ``a`` ties exactly on many
-    channels, every sum is exact, and the max/min cotangents must go to the
-    first tied neighbour in idx order, as in the Pallas kernel."""
+@functools.lru_cache(maxsize=None)
+def _tie_case(cross):
+    """Inputs on which ``a`` ties exactly, and the Pallas kernel's grads."""
     b, s, n, c, f, k = (1, 64, 128, 3, 16, 64) if cross else (1, 128, 128, 3, 16, 20)
     rng = np.random.default_rng(2)
     kv = rng.normal(size=(b, n, c)).astype(np.float32)
@@ -158,14 +177,23 @@ def test_first_hit_routing_on_exact_ties(cross):
     q = (kv[:, :s] + 0.01 * rng.normal(size=(b, s, c))).astype(np.float32) if cross else kv
     v = (np.zeros((b, s, f)) if cross else rng.integers(-3, 4, size=(b, s, f))).astype(np.float32)
     cot = [rng.integers(-4, 5, size=(b, s, f)).astype(np.float32) / 2 for _ in range(4)]
+    return (q, kv, u, v, cot, k), _jax_grads(_pallas(cross), q, kv, u, v, cot, k)
 
+
+@pytest.mark.parametrize("port", [_port_plain, _port_key_major], ids=["plain", "key-major"])
+@pytest.mark.parametrize("cross", [False, True], ids=["self", "sa-node"])
+def test_first_hit_routing_on_exact_ties(cross, port):
+    """Points 64 and 65 duplicate point 0, values included, and u, v and the
+    cotangents are small integers: the replayed ``a`` ties exactly on many
+    channels, every sum is exact, and the max/min cotangents must go to the
+    first tied neighbour in idx order, as in the Pallas kernel."""
+    (q, kv, u, v, cot, k), want = _tie_case(cross)
     tq, tkv, tu, tv = (torch.from_numpy(a) for a in (q, kv, u, v))
     amax, _, _, _, idx = te.edgeconv_reduce(tq, tkv, tu, tv, k)
     a = te.index_points(tu, idx) + tv[:, :, None, :]
     ties = ((a == amax[:, :, None, :]).sum(2) > 1).sum().item()
     assert ties > 100, ties  # the routing rule is exercised
-    want = _jax_grads(_pallas(cross), q, kv, u, v, cot, k)
-    for name, g, w in zip(("du", "dv"), _port_plain(q, kv, u, v, cot, k), want):
+    for name, g, w in zip(("du", "dv"), port(q, kv, u, v, cot, k), want):
         np.testing.assert_allclose(g, w, rtol=1e-6, atol=1e-6, err_msg=name)
 
 
@@ -205,3 +233,102 @@ def test_backward_wrapper_validates_and_does_not_count_cpu_launches():
         te.edgeconv_reduce_bwd(*args[:8], args[8][:, :4])
     with pytest.raises(ValueError, match="no path for device"):
         te.edgeconv_reduce_bwd(*(a.to("meta") for a in args))
+    # the kernels' own limits, checked before a launch on the card: the
+    # forward's k (20, 64) and N up to the FPS kernel's 16384 pass
+    te.check_bwd_kernel_limits(64, 4096, 16384, 256, 64)
+    for bad in ((64, 64, 1024, 64, 256), (2, 64, te.MAX_BWD_KEYS + 1, 64, 20),
+                (65536, 64, 1024, 64, 20)):
+        with pytest.raises(ValueError, match=r"B=\d+, S=64, N=\d+, F=64, k=\d+"):
+            te.check_bwd_kernel_limits(*bad)
+
+
+def _hub_idx(b, s, n, k, seed):
+    """A seeded (b, s, k) idx of distinct keys per row, with key 1 in every
+    row (a hub, as a zero-padded cloud makes) and key n-1 in none."""
+    rng = np.random.default_rng(seed)
+    idx = np.stack([np.stack([np.concatenate([[1], rng.choice(np.r_[0, 2:n - 1], k - 1,
+                                                               replace=False)])
+                              for _ in range(s)]) for _ in range(b)])
+    return torch.from_numpy(idx.astype(np.int32))
+
+
+@pytest.mark.parametrize("shape", [(2, 48, 40, 20), (1, 16, 96, 64), (3, 30, 30, 29)],
+                         ids=["self-k20", "cross-k64", "dense"])
+def test_key_csr_plain_is_stable_and_complete(shape):
+    """Every entry once, in its key's list, each list ascending in e; the
+    offsets start at 0, end at S*k and count an empty key as empty."""
+    b, s, n, k = shape
+    idx = _hub_idx(b, s, n, k, 5)
+    offsets, edges = te.key_csr_plain(idx, n)
+    assert offsets.dtype == edges.dtype == torch.int32
+    assert offsets.shape == (b, n + 1) and edges.shape == (b, s * k)
+    assert (offsets[:, 0] == 0).all() and (offsets[:, -1] == s * k).all()
+    flat = idx.reshape(b, -1)
+    for c in range(b):
+        assert sorted(edges[c].tolist()) == list(range(s * k))  # every entry once
+        for key in range(n):
+            lst = edges[c, offsets[c, key]:offsets[c, key + 1]].long()
+            assert (flat[c, lst] == key).all()
+            assert (lst[1:] > lst[:-1]).all()  # ascending e
+        assert offsets[c, 2] - offsets[c, 1] == s  # the hub: every row
+        assert offsets[c, n] == offsets[c, n - 1]  # the empty key
+
+
+def _ordered_loop(idx, u, v, amax, amin, damax, damin, ds1, ds2):
+    """dU and dV by walking (s, j) in order in numpy f32, first hits as the
+    kernels find them, each sum from 0."""
+    idx, u, v, amax, amin, damax, damin, ds1, ds2 = (
+        t.numpy() for t in (idx, u, v, amax, amin, damax, damin, ds1, ds2))
+    du, dv = np.zeros_like(u), np.zeros_like(v)
+    zero = np.float32(0)
+    for b in range(idx.shape[0]):
+        for s in range(idx.shape[1]):
+            hit_max = np.zeros(u.shape[-1], bool)
+            hit_min = np.zeros(u.shape[-1], bool)
+            for j, n in enumerate(idx[b, s]):
+                a = u[b, n] + v[b, s]
+                sel_max = ~hit_max & (a == amax[b, s])
+                sel_min = ~hit_min & (a == amin[b, s])
+                hit_max |= sel_max
+                hit_min |= sel_min
+                da = (((np.where(sel_max, damax[b, s], zero) + np.where(sel_min, damin[b, s], zero))
+                       + ds1[b, s]) + (np.float32(2) * a) * ds2[b, s])
+                du[b, n] += da
+                dv[b, s] += da
+    return du, dv
+
+
+@pytest.mark.parametrize("case", ["self", "sa-node", "zero-padded", "exact-ties"])
+def test_key_major_sums_in_the_kernels_order(case):
+    """``du_by_key_plain`` and ``first_hits_plain``'s dv equal the ordered
+    numpy loop bit for bit, on random inputs, on a zero-padded cloud (hub
+    keys with some 100 entries) and on exact ties; and both agree with the
+    plain scatter-add backward to the module's tolerance."""
+    rng = np.random.default_rng(6)
+    b, s, n, c, f, k = (1, 64, 128, 3, 16, 64) if case == "sa-node" else (2, 128, 128, 3, 16, 20)
+    kv = rng.normal(size=(b, n, c)).astype(np.float32)
+    if case == "zero-padded":
+        kv[:, 24:] = 0.0
+    u = rng.normal(size=(b, n, f)).astype(np.float32)
+    v = rng.normal(size=(b, s, f)).astype(np.float32)
+    if case == "exact-ties":
+        u = rng.integers(-2, 3, size=u.shape).astype(np.float32)
+        v = rng.integers(-2, 3, size=v.shape).astype(np.float32)
+    q = (kv[:, :s] + 0.05 * rng.normal(size=(b, s, c))).astype(np.float32) if case == "sa-node" \
+        else kv
+    cot = [torch.from_numpy(rng.normal(size=(b, s, f)).astype(np.float32)) for _ in range(4)]
+    tu, tv = torch.from_numpy(u), torch.from_numpy(v)
+    amax, amin, _, _, idx = te.edgeconv_reduce(torch.from_numpy(q), torch.from_numpy(kv), tu, tv, k)
+    args = (idx, tu, tv, amax, amin, *cot)
+    du, dv, offsets, _, jmax, _ = te.edgeconv_reduce_bwd_stages_plain(*args)
+    want_du, want_dv = _ordered_loop(*args)
+    assert np.array_equal(du.numpy(), want_du)
+    assert np.array_equal(dv.numpy(), want_dv)
+    longest = (offsets[:, 1:] - offsets[:, :-1]).max().item()
+    if case == "zero-padded":
+        assert longest >= 100, longest  # hub keys
+    if case == "exact-ties":
+        assert (jmax.long() > 0).any()  # a first hit past j=0
+    plain_du, plain_dv = te.edgeconv_reduce_bwd_plain(*args)
+    _assert_close(du.numpy(), plain_du.numpy(), "du")
+    _assert_close(dv.numpy(), plain_dv.numpy(), "dv")
