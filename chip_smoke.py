@@ -18,8 +18,13 @@ ends the run with a non-zero exit; the phases, in order:
 3. kernels against their plain PyTorch versions on the card: the EdgeConv
    forward and backward at the shapes the DGCNN twin-head forward and
    backward give them at B=64, at ragged sizes (N=1000, S=61), on exact-tie
-   inputs, and (backward) at N=2000 with F=40 and at N=32768 keys, where
-   the csr kernel places every entry with one warp; two backward launches
+   inputs, (forward) at N=16384 keys and on exact ties at k=64 on a
+   zero-padded N=4096 lattice, and (backward) at N=2000 with F=40 and at
+   N=32768 keys, where the csr kernel places every entry with one warp; the
+   forward's gather kernel bit for bit against ``gather_reduce_plain`` on the
+   select kernel's own idx, two forward launches agreeing bit for bit in all
+   five outputs, and a k above the forward's cap raising before any launch;
+   two backward launches
    agreeing bit for bit in every output and scratch array, and each of the
    backward's three kernels (csr, rows, keys) equal bit for bit to its
    plain version on the first two clouds of every backward case; the
@@ -70,9 +75,11 @@ ends the run with a non-zero exit; the phases, in order:
    points launches the FPS or min-dists kernel;
 5. times, with CUDA events after warm-up: each kernel shape beside its bound,
    its plain version and, for min-dists, ``torch.cdist`` and ``amin``; the
-   EdgeConv backward also at the N=4096 shapes and on a zero-padded cloud,
-   and its split by kernel (csr, rows, keys) at block 4 and at N=4096 from a
-   ``torch.profiler`` run; for
+   EdgeConv forward also at the five N=4096 shapes and on a zero-padded
+   cloud, with its split by kernel (select, gather) at every shape from a
+   ``torch.profiler`` run; the EdgeConv backward also at the N=4096 shapes
+   and on a zero-padded cloud, and its split by kernel (csr, rows, keys) at
+   block 4 and at N=4096; for
    the vector attention at each PTran level its achieved TFLOP/s, its bound
    with the D×D products on the tensor cores as 3xTF32 beside the f32 bound
    outside them, the weight bytes the design asks of L2 (a count from the
@@ -123,8 +130,8 @@ SHAPES = [
     ("sa_node", 64, 3, 64, 64),
 ]
 # ragged sizes (infer takes any --num_points): N not a multiple of the
-# kernel's 64-key chunk and S not a multiple of its 8 queries per block, so
-# the partial last chunk and the idle warps of the last block both run
+# select kernel's 64-key tile and S not a multiple of its 64 queries per
+# block, so the partial last tile and the idle rows of the last block run
 RAGGED_N = 1000
 RAGGED = [
     ("ragged self N=1000", None, 64, 64, 20),
@@ -243,6 +250,15 @@ FPS_SHAPES = [(4096, 64), (16384, 512), (4100, 64)]
 # some 30 GB at B=64, by count of their shapes
 LARGE_SHAPES = [SHAPES[0], SHAPES[3], SHAPES[4]]
 LARGE_BWD_B = {"block4": 16}
+# the EdgeConv forward's further cases: self-kNN (block 1's widths) at
+# N_HUGE keys on HUGE_B clouds, and exact ties at k=64 on TIE_PAD_B
+# zero-padded lattice clouds of N_LARGE points
+N_HUGE = 16384
+HUGE_B = 4
+TIE_PAD_B = 16
+# the forward's kernels, in launch order: (label, name in the profiler)
+FWD_KERNELS = (("select", "edgeconv_fwd_select_kernel"), ("gather", "edgeconv_fwd_gather_kernel"))
+BWD_KERNELS = tuple((k, f"edgeconv_bwd_{k}_kernel") for k in ("csr", "rows", "keys"))
 # what edgeconv_reduce_bwd_stages returns, in order; and the clouds of each
 # backward case on which each kernel is held bit for bit to its plain
 # version (the plain keys walk takes one step per entry of the longest key
@@ -790,10 +806,12 @@ def profile_device(fn, what: str, wall_ms: float, iters: int = 3) -> None:
         print(f"  {ms:9.4f} ms  x{n:<5g} {key[:110]}", flush=True)
 
 
-def bwd_split(fn, what: str, wall_ms: float, iters: int = 3) -> None:
-    """Device time of each EdgeConv backward kernel per launch (torch.profiler
-    over ``iters`` calls of ``fn``, each kernel's time over the launches it
-    recorded), beside the CUDA-event time of one call."""
+def kernel_split(fn, what: str, wall_ms: float, kernels, iters: int = 3):
+    """Device time per launch of each of ``kernels`` ((label, name in the
+    profiler) pairs: the EdgeConv forward's or backward's), from a
+    torch.profiler run over ``iters`` calls of ``fn``, each kernel's time over
+    the launches it recorded, beside the CUDA-event time of one call. Returns
+    {label: ms per launch}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -801,15 +819,16 @@ def bwd_split(fn, what: str, wall_ms: float, iters: int = 3) -> None:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    parts = []
-    for kernel in ("csr", "rows", "keys"):
+    split, parts = {}, []
+    for label, kernel in kernels:
         rows = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and f"edgeconv_bwd_{kernel}_kernel" in e.key]
+                if e.device_type == DeviceType.CUDA and kernel in e.key]
         n = sum(e.count for e in rows)
-        ms = sum(e.self_device_time_total for e in rows) / 1e3 / n if n else float("nan")
-        parts.append(f"{kernel} {ms:.4f} ms ({n} of {iters} launches recorded)")
+        split[label] = sum(e.self_device_time_total for e in rows) / 1e3 / n if n else float("nan")
+        parts.append(f"{label} {split[label]:.4f} ms ({n} of {iters} launches recorded)")
     print(f"  split of {what} by kernel, device time per launch: {', '.join(parts)}; "
           f"the call {wall_ms:.4f} ms", flush=True)
+    return split
 
 
 def write_pointda_tree(root, rng, num_points=N_POINTS):
@@ -1148,6 +1167,90 @@ def edgeconv_cases(gen, dev, bwd=False):
                shape_inputs(shape, gen, dev, N_LARGE, real=2048))
 
 
+def compare_fwd(name, args, require_exact_idx=False):
+    """The forward kernels against the plain version on ``args`` (see
+    ``compare``); the gather kernel bit for bit against
+    ``gather_reduce_plain`` on the select kernel's own idx; and two launches
+    bit-identical in all five outputs. Returns the max |diff| on agreeing
+    rows."""
+    q, kv, u, v, k = args
+    got = edgeconv.edgeconv_reduce(*args)
+    idx, *again = edgeconv.edgeconv_reduce_stages(*args)
+    for label, g, a in zip(("amax", "amin", "s1", "s2", "idx"), got, (*again, idx)):
+        if not torch.equal(g, a):
+            fail(f"{name}: two forward launches on the same inputs differ in {label}")
+    for label, g, w in zip(("amax", "amin", "s1", "s2"), got,
+                           edgeconv.gather_reduce_plain(got[4], u, v)):
+        if not torch.equal(g, w):
+            fail(f"{name}: the gather kernel's {label} differs from gather_reduce_plain on its "
+                 "own idx")
+    want = edgeconv.edgeconv_reduce_plain(*args)
+    torch.cuda.synchronize()
+    err, _ = compare(name, got, want, require_exact_idx)
+    return err
+
+
+def check_edgeconv_fwd(gen, dev):
+    """The EdgeConv forward kernels (``compare_fwd``) at every case of
+    ``edgeconv_cases`` and on the exact-tie lattices; then, from a generator
+    of their own (so every later check draws the inputs it drew before), at
+    N=16384 keys, on exact ties at k=64 on a zero-padded N=4096 lattice, and
+    with a k above the kernels' cap, which must raise before any launch.
+    Returns the max |diff|, and the lattices ``lat`` (N=1024) and ``lat_r``
+    (N=1000) for the later checks."""
+    print("forward kernels vs plain (tolerance: sets agree on >= "
+          f"{MIN_SET_AGREEMENT}, agreeing rows to {REL_TOL} rel of max(|plain|,1); exact ties "
+          "index for index; gather bit for bit against gather_reduce_plain on the kernel's idx; "
+          "two launches bit-identical):", flush=True)
+    max_abs_err = 0.0
+    for name, args in edgeconv_cases(gen, dev):
+        max_abs_err = max(max_abs_err, compare_fwd(name, args))
+    del args
+    # exact ties: integer lattice points, duplicates included, so every
+    # distance is exact in f32 and both sides must pick the same indices in
+    # the same order (the lowest index first among equal distances)
+    lat = torch.randint(-6, 7, (B, N_POINTS, 3), generator=gen, device=dev).float()
+    lat[:, 64] = lat[:, 0]
+    lat[:, 65] = lat[:, 0]
+    lat_r = lat[:, :RAGGED_N].contiguous()
+    for name, q, kv, k in (
+        ("tie self k=20", lat, lat, 20),
+        ("tie cross k=64", lat[:, 128:192].contiguous(), lat, 64),
+        ("tie ragged self N=1000 k=20", lat_r, lat_r, 20),
+        ("tie ragged cross S=61 N=1000 k=64", lat_r[:, 128:189].contiguous(), lat_r, 64),
+    ):
+        u = torch.randn((B, kv.shape[1], 64), generator=gen, device=dev)
+        v = torch.randn((B, q.shape[1], 64), generator=gen, device=dev)
+        max_abs_err = max(max_abs_err, compare_fwd(name, (q, kv, u, v, k),
+                                                   require_exact_idx=True))
+    own = torch.Generator(device=dev).manual_seed(9)
+    # N=16384 keys: the select kernel's shared memory does not grow with N;
+    # the plain kNN goes blockwise above 4096
+    args = shape_inputs(SHAPES[0], own, dev, N_HUGE, b=HUGE_B)
+    max_abs_err = max(max_abs_err, compare_fwd(f"block1 N={N_HUGE} B={HUGE_B}", args))
+    # exact ties at k=64: a lattice cloud zero-padded past 2048 points, so the
+    # 2048 padded points tie at every query and the bar must turn them away
+    pad = torch.randint(-6, 7, (TIE_PAD_B, N_LARGE, 3), generator=own, device=dev).float()
+    pad[:, 2048:] = 0.0
+    args = (pad, pad, torch.randn((TIE_PAD_B, N_LARGE, 64), generator=own, device=dev),
+            torch.randn((TIE_PAD_B, N_LARGE, 64), generator=own, device=dev), 64)
+    max_abs_err = max(max_abs_err, compare_fwd(
+        f"tie self zero-padded N={N_LARGE} (2048 real) k=64 B={TIE_PAD_B}", args,
+        require_exact_idx=True))
+    before = edgeconv.edgeconv_reduce.launches
+    try:
+        edgeconv.edgeconv_reduce(*args[:4], edgeconv.MAX_FWD_K + 1)
+    except ValueError as e:
+        torch.cuda.synchronize()
+        if edgeconv.edgeconv_reduce.launches != before:
+            fail("edgeconv_reduce counted a launch for a k above the kernels' cap")
+        print(f"  k={edgeconv.MAX_FWD_K + 1} above the cap raised before any launch: {e}",
+              flush=True)
+    else:
+        fail(f"edgeconv_reduce took k={edgeconv.MAX_FWD_K + 1}, above the kernels' cap")
+    return max_abs_err, lat, lat_r
+
+
 def check_edgeconv_bwd(gen, dev, lat, lat_r):
     """The EdgeConv backward kernels against the plain backward at every
     case of ``edgeconv_cases``, on the exact-tie lattices ``lat`` (N=1024)
@@ -1198,6 +1301,53 @@ def check_edgeconv_bwd(gen, dev, lat, lat_r):
     return bwd_max_abs_err
 
 
+def time_edgeconv_fwd(gen, dev, entry):
+    """Times the forward (one call, its two kernels) at the five N=1024
+    shapes at B=64 beside its bound and the plain version, and adds them to
+    ``entry``; then, from a generator of its own, at the five N=4096 shapes
+    and block 1 on a zero-padded cloud (``entry["large_shapes"]``). Each
+    shape's call is split by kernel (select, gather) by ``kernel_split``."""
+    t_ops = 0.0
+    for shape in SHAPES:
+        args = shape_inputs(shape, gen, dev)
+        ms = timed_ms(lambda: edgeconv.edgeconv_reduce(*args), iters=20)
+        plain_ms = timed_ms(lambda: edgeconv.edgeconv_reduce_plain(*args), iters=5)
+        b_ms, b_by, nbytes, flops = bound(*args)
+        t_ops += flops / F32_FLOP_PER_S * 1e3 if b_by == "operations" else 0.0
+        print(f"  {shape[0]} (B={B}, S={args[0].shape[1]}, N={N_POINTS}, C={shape[2]}, "
+              f"F={shape[3]}, k={shape[4]}): kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
+              flush=True)
+        split = kernel_split(lambda: edgeconv.edgeconv_reduce(*args), f"forward {shape[0]}", ms,
+                             FWD_KERNELS)
+        entry["shapes"].append({"name": shape[0], "ms": ms, "plain_ms": plain_ms,
+                                "bound_ms": b_ms, "bound_by": b_by,
+                                **{f"{k}_ms": t for k, t in split.items()}})
+        entry["ms"] += ms
+        entry["plain_ms"] += plain_ms
+        entry["bound_ms"] += b_ms
+    # the entry is one forward's five calls; say what bounds most of them
+    entry["bound_by"] = "operations" if t_ops >= entry["bound_ms"] / 2 else "bytes"
+    del args
+    own = torch.Generator(device=dev).manual_seed(10)
+    entry["large_shapes"] = []
+    for shape, real in [(s, None) for s in SHAPES] + [(SHAPES[0], 2048)]:
+        args = shape_inputs(shape, own, dev, N_LARGE, real=real)
+        ms = timed_ms(lambda: edgeconv.edgeconv_reduce(*args), iters=5)
+        plain_ms = timed_ms(lambda: edgeconv.edgeconv_reduce_plain(*args), iters=1, warmup=1)
+        b_ms, b_by, nbytes, flops = bound(*args)
+        name = f"{shape[0]} N={N_LARGE}" + ("" if real is None else f" zero-padded ({real} real)")
+        print(f"  forward {name} (B={B}, S={args[0].shape[1]}, C={shape[2]}, F={shape[3]}, "
+              f"k={shape[4]}): kernels {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms "
+              f"by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
+        split = kernel_split(lambda: edgeconv.edgeconv_reduce(*args), f"forward {name}", ms,
+                             FWD_KERNELS)
+        entry["large_shapes"].append({"name": name, "ms": ms, "plain_ms": plain_ms,
+                                      "bound_ms": b_ms, "bound_by": b_by,
+                                      **{f"{k}_ms": t for k, t in split.items()}})
+    del args
+
+
 def time_edgeconv_bwd(gen, dev, entry):
     """Times the backward (one call, its three kernels) at the forward's five
     shapes at B=64, fed by one forward launch, beside its bound and the plain
@@ -1222,7 +1372,8 @@ def time_edgeconv_bwd(gen, dev, entry):
         entry["plain_ms"] += plain_ms
         entry["bound_ms"] += b_ms
         if shape[0] == "block4":
-            bwd_split(lambda: edgeconv.edgeconv_reduce_bwd(*args), "backward block4", ms)
+            kernel_split(lambda: edgeconv.edgeconv_reduce_bwd(*args), "backward block4", ms,
+                         BWD_KERNELS)
     del args
     for shape, real in [(s, None) for s in LARGE_SHAPES] + [(SHAPES[0], 2048)]:
         args = bwd_inputs(*shape_inputs(shape, gen, dev, N_LARGE, real=real), gen)
@@ -1232,7 +1383,8 @@ def time_edgeconv_bwd(gen, dev, entry):
         print(f"  backward {name} (B={B}, S={args[0].shape[1]}, F={shape[3]}, k={shape[4]}): "
               f"kernels {ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB)",
               flush=True)
-        bwd_split(lambda: edgeconv.edgeconv_reduce_bwd(*args), f"backward {name}", ms)
+        kernel_split(lambda: edgeconv.edgeconv_reduce_bwd(*args), f"backward {name}", ms,
+                     BWD_KERNELS)
     del args
 
 
@@ -1290,37 +1442,9 @@ def main() -> None:
             fail(f"{kernel}: no HMMA instruction in its SASS: not on the tensor cores")
 
     # 3. kernels against plain versions
-    print("kernel vs plain (tolerance: sets agree on >= "
-          f"{MIN_SET_AGREEMENT}, agreeing rows to {REL_TOL} rel of max(|plain|,1)):", flush=True)
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    max_abs_err = 0.0
-    for name, args in edgeconv_cases(gen, dev):
-        got = edgeconv.edgeconv_reduce(*args)
-        want = edgeconv.edgeconv_reduce_plain(*args)
-        torch.cuda.synchronize()
-        err, _ = compare(name, got, want)
-        max_abs_err = max(max_abs_err, err)
-    del args, got, want
-    # exact ties: integer lattice points, duplicates included, so every
-    # distance is exact in f32 and both sides must pick the same indices in
-    # the same order (the lowest index first among equal distances)
-    lat = torch.randint(-6, 7, (B, N_POINTS, 3), generator=gen, device=dev).float()
-    lat[:, 64] = lat[:, 0]
-    lat[:, 65] = lat[:, 0]
-    lat_r = lat[:, :RAGGED_N].contiguous()
-    for name, q, kv, k in (
-        ("tie self k=20", lat, lat, 20),
-        ("tie cross k=64", lat[:, 128:192].contiguous(), lat, 64),
-        ("tie ragged self N=1000 k=20", lat_r, lat_r, 20),
-        ("tie ragged cross S=61 N=1000 k=64", lat_r[:, 128:189].contiguous(), lat_r, 64),
-    ):
-        u = torch.randn((B, kv.shape[1], 64), generator=gen, device=dev)
-        v = torch.randn((B, q.shape[1], 64), generator=gen, device=dev)
-        got = edgeconv.edgeconv_reduce(q, kv, u, v, k)
-        want = edgeconv.edgeconv_reduce_plain(q, kv, u, v, k)
-        err, _ = compare(name, got, want, require_exact_idx=True)
-        max_abs_err = max(max_abs_err, err)
+    max_abs_err, lat, lat_r = check_edgeconv_fwd(gen, dev)
     # FPS: torch.argmax must return the first maximal index on the card too
     sym = torch.zeros((1, 8, 3))
     sym[0, :, 0] = torch.tensor([0.0, 1, -1, 1, -1, 2, -2, 2])
@@ -1438,24 +1562,7 @@ def main() -> None:
              "replaces": "sug_tpu/ops/edgeconv_pallas.py:498",
              "launches": fwd_launches, "max_abs_err": max_abs_err, "ms": 0.0, "plain_ms": 0.0,
              "bound_ms": 0.0, "library_ms": None, "shapes": []}
-    t_ops = 0.0
-    for shape in SHAPES:
-        args = shape_inputs(shape, gen, dev)
-        ms = timed_ms(lambda: edgeconv.edgeconv_reduce(*args), iters=20)
-        plain_ms = timed_ms(lambda: edgeconv.edgeconv_reduce_plain(*args), iters=5)
-        b_ms, b_by, nbytes, flops = bound(*args)
-        t_ops += flops / F32_FLOP_PER_S * 1e3 if b_by == "operations" else 0.0
-        print(f"  {shape[0]} (B={B}, S={args[0].shape[1]}, N={N_POINTS}, C={shape[2]}, "
-              f"F={shape[3]}, k={shape[4]}): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)",
-              flush=True)
-        entry["shapes"].append({"name": shape[0], "ms": ms, "plain_ms": plain_ms,
-                                "bound_ms": b_ms, "bound_by": b_by})
-        entry["ms"] += ms
-        entry["plain_ms"] += plain_ms
-        entry["bound_ms"] += b_ms
-    # the entry is one forward's five calls; say what bounds most of them
-    entry["bound_by"] = "operations" if t_ops >= entry["bound_ms"] / 2 else "bytes"
+    time_edgeconv_fwd(gen, dev, entry)
 
     # the backward at the forward's five shapes, fed by one forward launch;
     # no single PyTorch call replays, routes first hits and scatters

@@ -40,7 +40,7 @@
 //   launch. Where two segments' counts do not fit beside the N-int cursor
 //   (N above about 29000) or a key has more than 65535 entries, one warp
 //   walks every entry with the cursor alone. The cursor bounds N at
-//   kMaxKeys, above what the forward's one distance row per query allows.
+//   kMaxKeys; the forward has no key cap, so above it the backward refuses.
 // - rows: one thread per (b, s, f) replays a_j over j in order, writes dv as
 //   the sum of da_j in j order from 0, and the first j that hits amax (amin)
 //   as jmax (jmin), or k where none does (a NaN row, or a max taken

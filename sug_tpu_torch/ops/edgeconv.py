@@ -1,12 +1,16 @@
-"""EdgeConv kNN-gather-reduce: the CUDA kernel, its plain version, and the
-wrapper that dispatches between them.
+"""EdgeConv kNN-gather-reduce: the CUDA kernels, their plain versions, and
+the wrappers that dispatch between them.
 
 ``edgeconv_reduce(q, kv, u, v, k)`` finds, for each query ``q[b, s]``, its k
 nearest keys in ``kv[b]`` (f32 squared distance, the lowest index winning a
 tie), forms ``a_j = u[b, idx_j] + v[b, s]`` and returns the max, min, sum and
 sum of squares of ``a_j`` over j, plus idx (B, S, k) int32. It is the
 counterpart of the TPU kernel behind ``fused_edgeconv_reduce`` and
-``fused_cross_edgeconv_reduce`` (``sug_tpu/ops/edgeconv_pallas.py``).
+``fused_cross_edgeconv_reduce`` (``sug_tpu/ops/edgeconv_pallas.py``). On the
+card it runs as two kernels: ``select`` (the kNN indices, a streaming top-k
+over key tiles) and ``gather`` (the four reductions from idx);
+``cross_knn_indices`` and ``gather_reduce_plain`` are their plain versions,
+the latter in the kernel's order of adds.
 
 ``edgeconv_reduce_bwd`` is its backward, the counterpart of ``_bwd_pallas``:
 it replays ``a_j`` from idx, routes the max/min cotangents to the first j
@@ -21,7 +25,7 @@ does with its custom VJP; ``fused_edgeconv_reduce`` and
 ``fused_cross_edgeconv_reduce`` call it.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor
-it launches its hand-written kernel (``csrc/edgeconv_fwd.cu``,
+it launches its hand-written kernels (``csrc/edgeconv_fwd.cu``,
 ``csrc/edgeconv_bwd.cu``) or raises.
 """
 
@@ -35,8 +39,14 @@ from sug_tpu_torch.ops import cuda_build
 from sug_tpu_torch.ops.geometry import cross_knn_indices, index_points
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+Reductions = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 _CUDA_ERROR_INVALID_VALUE = 1
+# the forward kernels' limits (kMaxK and kMaxC in csrc/edgeconv_fwd.cu): each
+# query's top-k list is two words per lane of a warp, and the select block
+# keeps its 64 queries' coordinates in shared memory
+MAX_FWD_K = 64
+MAX_FWD_C = 512
 # the backward kernels' limits (kMaxK and kMaxKeys in csrc/edgeconv_bwd.cu):
 # jmax and jmin are uint8, with k meaning "no hit"; the csr kernel's cursor
 # holds N ints of shared memory
@@ -59,6 +69,34 @@ def edgeconv_reduce_plain(q, kv, u, v, k: int) -> Outputs:
     )
 
 
+def gather_reduce_plain(idx, u, v) -> Reductions:
+    """The plain version of the ``gather`` kernel: from idx (B,S,k) int32, u
+    (B,N,F) and v (B,S,F), amax, amin, s1 and s2 (B,S,F) of ``a_j = u[idx_j]
+    + v``, each a loop over j from 0 with every product and add rounded on
+    its own, so the kernel repeats them bit for bit. max and min skip a NaN,
+    as the kernel's ``fmaxf`` and ``fminf`` do."""
+    a = index_points(u, idx) + v[:, :, None, :]  # (B, S, k, F)
+    amax = torch.full_like(v, float("-inf"))
+    amin = torch.full_like(v, float("inf"))
+    s1, s2 = torch.zeros_like(v), torch.zeros_like(v)
+    for j in range(idx.shape[2]):
+        aj = a[:, :, j]
+        amax, amin = torch.fmax(amax, aj), torch.fmin(amin, aj)
+        s1, s2 = s1 + aj, s2 + aj * aj
+    return amax, amin, s1, s2
+
+
+def check_fwd_kernel_limits(B: int, S: int, N: int, C: int, F: int, k: int) -> None:
+    """Raises ValueError, with the shape, where the forward kernels cannot
+    run: k above ``MAX_FWD_K``, C above ``MAX_FWD_C``, or more than 65535
+    clouds (the select grid's y). The wrapper checks it on every device, so
+    a model that runs on the CPU also runs on the card."""
+    if k > MAX_FWD_K or C > MAX_FWD_C or B > 65535:
+        raise ValueError(f"edgeconv_reduce: the kernels take k <= {MAX_FWD_K}, C <= "
+                         f"{MAX_FWD_C} and B <= 65535; got B={B}, S={S}, N={N}, C={C}, "
+                         f"F={F}, k={k}")
+
+
 def _check(q, kv, u, v, k: int) -> None:
     names = ("q", "kv", "u", "v")
     for name, t in zip(names, (q, kv, u, v)):
@@ -78,6 +116,7 @@ def _check(q, kv, u, v, k: int) -> None:
         )
     if not 1 <= k <= N:
         raise ValueError(f"edgeconv_reduce: need 1 <= k <= N, got k={k}, N={N}")
+    check_fwd_kernel_limits(B, S, N, C, F, k)
 
 
 def _launch(q, kv, u, v, k: int) -> Outputs:
@@ -95,11 +134,9 @@ def _launch(q, kv, u, v, k: int) -> Outputs:
             B, S, N, C, F, k, stream,
         )
     if err != 0:
-        msg = lib.edgeconv_error_string(err).decode()
-        if err == _CUDA_ERROR_INVALID_VALUE:
-            msg += f" (B={B}, S={S}, N={N}, C={C}, F={F}, k={k}: N may be too large " \
-                   "for one distance row per query in shared memory)"
-        raise RuntimeError(f"edgeconv_fwd launch failed: {msg}")
+        msg = (f"edgeconv_fwd launch failed: {lib.edgeconv_error_string(err).decode()} "
+               f"(B={B}, S={S}, N={N}, C={C}, F={F}, k={k})")
+        raise (ValueError if err == _CUDA_ERROR_INVALID_VALUE else RuntimeError)(msg)
     edgeconv_reduce.launches += 1
     return amax, amin, s1, s2, idx
 
@@ -109,9 +146,11 @@ def edgeconv_reduce(q, kv, u, v, k: int) -> Outputs:
     (B,N,F) plus ``v`` (B,S,F): amax, amin, s1, s2 (B,S,F) f32 and idx
     (B,S,k) int32. Self-kNN passes ``q is kv`` (the point itself included).
 
-    CPU tensors go to the plain version, CUDA tensors to the kernel; a build
-    or launch failure raises. ``edgeconv_reduce.launches`` counts kernel
-    launches.
+    CPU tensors go to the plain version, CUDA tensors to the kernels; a
+    build or launch failure raises, and so does a shape beyond the kernels'
+    limits (``check_fwd_kernel_limits``) on either device. One call launches
+    the two kernels ``select`` and ``gather``; ``edgeconv_reduce.launches``
+    counts calls.
     """
     _check(q, kv, u, v, k)
     if q.device.type == "cpu":
@@ -119,6 +158,17 @@ def edgeconv_reduce(q, kv, u, v, k: int) -> Outputs:
     if q.device.type != "cuda":
         raise ValueError(f"edgeconv_reduce: no path for device {q.device}")
     return _launch(q, kv, u, v, k)
+
+
+def edgeconv_reduce_stages(q, kv, u, v, k: int) -> Outputs:
+    """The forward kernels' outputs, for checking each against its plain
+    version: idx (``select``), then amax, amin, s1, s2 (``gather``, from that
+    idx). CUDA tensors only."""
+    _check(q, kv, u, v, k)
+    if q.device.type != "cuda":
+        raise ValueError(f"edgeconv_reduce_stages: needs CUDA tensors, got {q.device}")
+    amax, amin, s1, s2, idx = _launch(q, kv, u, v, k)
+    return idx, amax, amin, s1, s2
 
 
 edgeconv_reduce.launches = 0
