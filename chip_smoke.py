@@ -41,9 +41,15 @@ ends the run with a non-zero exit; the phases, in order:
    (4096, 4096), (1024, 1024) and the ragged (3000, 2100) and (2100, 3000),
    on identical clouds and on zero-padded ones (2048 real points and 2048
    zeros), its (B, N) mins and the chamfer (B,) of two launches; FPS index for
-   index at N=4096 (random starts), N=16384 with npoint 512, the ragged
-   N=4100, zero-padded clouds and a lattice with duplicate points, two
-   launches bit-identical; the EdgeConv forward and backward at the N=4096
+   index from random starts at B=64 at the SA-node's (N, npoint) = (1024, 64)
+   and (4096, 64), PTran's four levels (1024, 256), (256, 64), (64, 16),
+   (16, 4), the ragged (1000, 250) and (4100, 64), (16384, 512), and at
+   small B on clusters of blocks (65536, 64) and (131072, 16), each on
+   random clouds and on a lattice with duplicate points, and on zero-padded
+   clouds, two launches bit-identical; N = 131073 refused; FPS under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no read back to the host);
+   an out-of-range start in a child process, which must end in a CUDA
+   error and print no indices; the EdgeConv forward and backward at the N=4096
    shapes (DGCNN blocks 1 and 4, the SA-node) and on a zero-padded cloud;
 4. the slices through their entry points, each with every launch count set
    to 0 just before it and read just after: ``sug_tpu_torch.infer``
@@ -71,10 +77,13 @@ ends the run with a non-zero exit; the phases, in order:
    N=4096 on the card against the CPU (losses, chamfer distances and
    gradients), and again on zero-padded clouds, leaving out the BN-bias
    channels whose padded rows sit at zero up to rounding, with the CPU's
-   gradients of the batch in reverse order as a witness. No path at 1024
-   points launches the FPS or min-dists kernel;
+   gradients of the batch in reverse order as a witness. Every path runs
+   the FPS kernel (DGCNN's and PointNet's SA-node once a forward, PTran's
+   four TransitionDowns); no path at 1024 points launches min-dists;
 5. times, with CUDA events after warm-up: each kernel shape beside its bound,
-   its plain version and, for min-dists, ``torch.cdist`` and ``amin``; the
+   its plain version and, for min-dists, ``torch.cdist`` and ``amin``; FPS
+   at every shape above, through its launcher, the wrapper and the
+   profiler's device time per launch, in µs per dependent step; the
    EdgeConv forward also at the five N=4096 shapes and on a zero-padded
    cloud, with its split by kernel (select, gather) at every shape from a
    ``torch.profiler`` run; the EdgeConv backward also at the N=4096 shapes
@@ -89,7 +98,7 @@ ends the run with a non-zero exit; the phases, in order:
    64, and the DGCNN, PTran and PointNet DG train steps at B=64+64 (DGCNN at
    N=1024 and 4096, PTran at 1024, PointNet at 1024 and 4096) with their
    peak memory; each with a ``torch.profiler`` breakdown of device time by
-   kernel.
+   kernel, and its launches counted as ``MAIN_PATHS`` says.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -241,9 +250,15 @@ MIN_DISTS_SHAPES = [(4096, 4096), (1024, 1024), (3000, 2100), (2100, 3000)]
 # measured by this script on an H100 80GB HBM3 at 700 W, on identical
 # clouds). A chamfer is a mean of such mins in each direction.
 MIN_DIST_REL = 1e-6
-# FPS cases at B=64, (N, npoint), indices exact: the main path's, the
-# kernel's largest cloud, a ragged N
-FPS_SHAPES = [(4096, 64), (16384, 512), (4100, 64)]
+# FPS cases (B, N, npoint), indices exact: the SA-node's at 1024 and 4096
+# points, PTran's four TransitionDowns at 1024 points, ragged clouds, a
+# 2-block cluster over 512 steps, and clusters of up to 8 blocks at small B
+# (the plain loop's steps over such clouds take the time there);
+# FPS_REFUSED points are more than the launcher takes
+FPS_SHAPES = [(B, 1024, 64), (B, 1024, 256), (B, 256, 64), (B, 64, 16), (B, 16, 4),
+              (B, 1000, 250), (B, 4096, 64), (B, 4100, 64), (B, 16384, 512), (4, 65536, 64),
+              (2, 131072, 16)]
+FPS_REFUSED = 131073
 # the EdgeConv kernels at the N=4096 shapes of DGCNN blocks 1 and 4 and of
 # the SA-node (every backbone's), at B=64; the backward's check at block 4
 # runs at B=16, since the plain backward's (B, S, k, F) temporaries would take
@@ -271,13 +286,16 @@ COUNTERS = ("edgeconv_fwd", "edgeconv_bwd", "vecattn_fwd", "vecattn_bwd_calls", 
 # each main path's launches (by COUNTERS) per train step and per eval or
 # serving batch of 64: per forward DGCNN runs the EdgeConv forward 5 times,
 # PTran the vector attention 5 times, PointNet the EdgeConv forward once (its
-# SA-node); from 4096 points the SA-node's FPS is one kernel launch, and above
-# 2048 the step's chamfer two min-dists launches. A step runs the source and
-# the target forward and their backward.
+# SA-node); the SA-node's FPS (DGCNN, PointNet) is one kernel launch at
+# every size, PTran's four TransitionDowns four, and above 2048 points the
+# step's chamfer two min-dists launches. A step runs the source and the
+# target forward and their backward.
 MAIN_PATHS = {
-    ("DGCNN", N_POINTS): ((10, 10, 0, 0, 0, 0), (5, 0, 0, 0, 0, 0)),
-    ("PTran", N_POINTS): ((0, 0, 10, 10, 0, 0), (0, 0, 5, 0, 0, 0)),
+    ("DGCNN", N_POINTS): ((10, 10, 0, 0, 2, 0), (5, 0, 0, 0, 1, 0)),
+    ("PTran", N_POINTS): ((0, 0, 10, 10, 8, 0), (0, 0, 5, 0, 4, 0)),
     ("Pointnet", N_LARGE): ((2, 2, 0, 0, 2, 2), (1, 0, 0, 0, 1, 0)),
+    ("Pointnet", N_POINTS): ((2, 2, 0, 0, 2, 0), (1, 0, 0, 0, 1, 0)),
+    ("DGCNN", N_LARGE): ((10, 10, 0, 0, 2, 2), (5, 0, 0, 0, 1, 0)),
 }
 
 
@@ -732,6 +750,7 @@ def compare_fps(name, xyz, npoint, gen):
     indices equal index for index, and two launches bit-identical."""
     gk = geometry_kernels
     starts = torch.randint(0, xyz.shape[1], (xyz.shape[0],), generator=gen, device=xyz.device)
+    starts[0] = xyz.shape[1] - 1  # a start at the cloud's last point
     got, again = gk.fps(xyz, npoint, starts), gk.fps(xyz, npoint, starts)
     want = gk.fps_plain(xyz, npoint, starts)
     torch.cuda.synchronize()
@@ -741,8 +760,64 @@ def compare_fps(name, xyz, npoint, gen):
         rows = int((got != want).any(-1).sum())
         fail(f"FPS {name}: indices differ from the plain loop in {rows} of {len(got)} clouds")
     distinct = min(len(torch.unique(r)) for r in got)
-    print(f"  {name}: indices equal in all {tuple(got.shape)}; two launches bit-identical; "
-          f"at least {distinct} distinct indices per cloud", flush=True)
+    print(f"  {name} (team {gk.fps_plan(xyz.shape[1])}): indices equal in all "
+          f"{tuple(got.shape)}; two launches bit-identical; at least {distinct} distinct "
+          "indices per cloud", flush=True)
+
+
+def check_fps(gen, dev):
+    """FPS at every case of ``FPS_SHAPES`` on random clouds and on a lattice
+    with duplicate points (13^3 sites: integer distances that tie), and on
+    zero-padded clouds; a cloud above the launcher's limit refused; the
+    wrapper without a read back to the host; an out-of-range start on the
+    card ending in a CUDA error in a child process."""
+    gk = geometry_kernels
+    print("FPS kernel vs plain (indices exact, two launches bit-identical):", flush=True)
+    for b, n, npoint in FPS_SHAPES:
+        compare_fps(f"B={b} N={n} npoint={npoint}", unit_clouds(b, n, gen, dev), npoint, gen)
+        lattice = torch.randint(-6, 7, (b, n, 3), generator=gen, device=dev).float()
+        compare_fps(f"lattice B={b} N={n} npoint={npoint}", lattice, npoint, gen)
+    for n, real in ((N_LARGE, 2048), (N_POINTS, 600)):
+        compare_fps(f"zero-padded B={B} N={n} ({real} real) npoint=64",
+                    unit_clouds(B, n, gen, dev, real), 64, gen)
+    try:
+        gk.fps(unit_clouds(1, FPS_REFUSED, gen, dev), 4)
+    except RuntimeError as e:
+        print(f"  N={FPS_REFUSED} refused: {e}", flush=True)
+    else:
+        fail(f"FPS took a cloud of {FPS_REFUSED} points, above its launcher's limit")
+    # no device-to-host copy: the starts on the card, and None
+    from sug_tpu_torch.ops.geometry import farthest_point_sample
+
+    xyz = unit_clouds(B, N_POINTS, gen, dev)
+    starts = torch.randint(0, N_POINTS, (B,), generator=gen, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = [gk.fps(xyz, 64, starts), farthest_point_sample(xyz, 64, starts), gk.fps(xyz, 64)]
+    except RuntimeError as e:
+        fail(f"FPS synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not (torch.equal(got[0], got[1]) and torch.equal(got[2][:, 0], torch.zeros_like(starts))):
+        fail("FPS under the sync check gave other indices")
+    print("  fps and farthest_point_sample under torch.cuda.set_sync_debug_mode('error'): no "
+          "synchronising call", flush=True)
+    # an out-of-range start: the kernel's device-side assert, in a child
+    # process (the fault leaves the CUDA context unusable)
+    code = ("import sys, torch; sys.path.insert(0, sys.argv[1]);"
+            "from sug_tpu_torch.ops import geometry_kernels as gk;"
+            "x = torch.rand((4, 100, 3), device='cuda');"
+            "out = gk.fps(x, 8, torch.tensor([0, 1, 100, 2], device='cuda'));"
+            "torch.cuda.synchronize(); print('INDICES', out.tolist())")
+    child = subprocess.run([sys.executable, "-c", code, HERE], capture_output=True, text=True,
+                           timeout=300)
+    lines = [ln for ln in child.stderr.splitlines() if "CUDA error" in ln]
+    print(f"  start 100 of a 100-point cloud, in a child process: exit {child.returncode}, "
+          f"{lines[-1] if lines else 'no CUDA error'}", flush=True)
+    if child.returncode == 0 or "INDICES" in child.stdout or not lines:
+        fail(f"FPS with an out-of-range start: exit {child.returncode}, stdout "
+             f"{child.stdout[-300:]!r}, stderr {child.stderr[-600:]!r}")
 
 
 def randomize_bn(model, gen):
@@ -881,6 +956,16 @@ def expected(model_name, num_points, steps, evals):
     serving) batches of a main path, by name, from ``MAIN_PATHS``."""
     per_step, per_eval = MAIN_PATHS[(model_name, num_points)]
     return {k: steps * s + evals * e for k, s, e in zip(COUNTERS, per_step, per_eval)}
+
+
+def check_launches(what, model_name, num_points, steps, evals):
+    """Fails unless the launches since ``reset_counts`` are ``MAIN_PATHS``'
+    for ``steps`` train steps and ``evals`` eval batches of the path."""
+    got, want = counts(), expected(model_name, num_points, steps, evals)
+    print(f"  {what}: launches {got}", flush=True)
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want} for {steps} steps and {evals} eval "
+             "batches")
 
 
 def va_bwd_launches_per_call(batch):
@@ -1501,27 +1586,19 @@ def main() -> None:
         md_max_abs_err = max(md_max_abs_err, compare_min_dists(name, q, s))
     del md_cases, same
 
-    print(f"FPS kernel vs plain at B={B} (indices exact, two launches bit-identical):", flush=True)
-    fps_cases = [(f"N={n} npoint={npoint}", unit_clouds(B, n, gen, dev), npoint)
-                 for n, npoint in FPS_SHAPES]
-    fps_cases.append((f"zero-padded N={N_LARGE} (2048 real) npoint=64",
-                      unit_clouds(B, N_LARGE, gen, dev, 2048), 64))
-    # 13^3 lattice sites for 4096 points: duplicates, and integer distances that tie
-    fps_cases.append((f"lattice N={N_LARGE} npoint=64",
-                      torch.randint(-6, 7, (B, N_LARGE, 3), generator=gen, device=dev).float(), 64))
-    for name, xyz, npoint in fps_cases:
-        compare_fps(name, xyz, npoint, gen)
-    del fps_cases
+    check_fps(gen, dev)
 
     # 4a. the DGCNN serving slice through its entry point
     rng = np.random.default_rng(0)
     launches, model, batch = serving_run(infer, "DGCNN", 0, rng, dev, 256)
     fwd_launches = launches["edgeconv_fwd"]
+    fps_launches = launches["fps"]
 
     # 4b. the DGCNN training slice through its entry point, then --resume
     got, _ = train_and_resume(train_dg_single_gpu.main, rng, "DGCNN")
     fwd_launches += got["edgeconv_fwd"]
     bwd_launches = got["edgeconv_bwd"]
+    fps_launches += got["fps"]
 
     # 4c. one DGCNN DG loss on the card against the CPU plain path
     _, cfg = parser_config(["--cfg", YAML, "--set", "Model", "DGCNN"])
@@ -1530,12 +1607,14 @@ def main() -> None:
     # 4d. the PTran serving slice through its entry point
     launches, ptran_model, ptran_batch = serving_run(infer, "PTran", 2, rng, dev, PTRAN_CLOUDS)
     va_launches = launches["vecattn_fwd"]
+    fps_launches += launches["fps"]
 
     # 4e. the PTran training slice through its entry point, then --resume;
     # 4f. one PTran DG loss on the card against the CPU plain path
     got, va_bwd_by_kernel = train_and_resume(train_dg_single_gpu.main, rng, "PTran")
     va_launches += got["vecattn_fwd"]
     va_bwd_calls = got["vecattn_bwd_calls"]
+    fps_launches += got["fps"]
     _, ptran_cfg = parser_config(["--cfg", YAML, "--set", "Model", "PTran"])
     card_against_cpu(ptran_cfg, rng, "PTran")
 
@@ -1545,7 +1624,8 @@ def main() -> None:
     got, _ = train_and_resume(train_dg_single_gpu.main, rng, "Pointnet", N_LARGE)
     fwd_launches += got["edgeconv_fwd"]
     bwd_launches += got["edgeconv_bwd"]
-    fps_launches, md_launches = got["fps"], got["min_dists"]
+    fps_launches += got["fps"]
+    md_launches = got["min_dists"]
     launches, pn_model, pn_batch = serving_run(infer, "Pointnet", 4, rng, dev, 2 * B, N_LARGE)
     fwd_launches += launches["edgeconv_fwd"]
     fps_launches += launches["fps"]
@@ -1700,31 +1780,43 @@ def main() -> None:
           f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)", flush=True)
     del q, s
 
-    npoint = 64
-    xyz = unit_clouds(B, N_LARGE, gen, dev)
-    starts = torch.randint(0, N_LARGE, (B,), generator=gen, device=dev)
-    # the kernel alone, through its launcher; the wrapper adds its start
-    # check, which reads the starts back to the host
-    ms = timed_ms(lambda: gk._launch_fps(xyz, npoint, starts), iters=50)
-    wrapper_ms = timed_ms(lambda: gk.fps(xyz, npoint, starts), iters=50)
-    plain_ms = timed_ms(lambda: gk.fps_plain(xyz, npoint, starts), iters=5)
-    # per point and step: 3 subtractions, 3 multiplies, 2 adds, a min and a
-    # compare; xyz and the starts read once, the indices written once. Neither
-    # binds in practice: each of the npoint steps ends in a block-wide arg-max
-    # the next step needs.
-    flops = 10.0 * B * N_LARGE * npoint
-    nbytes = 12.0 * B * N_LARGE + 8.0 * B + 8.0 * B * npoint
-    t_ops, t_bytes = flops / F32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    # FPS at every shape of FPS_SHAPES: the kernel through its launcher, its
+    # device time per launch (the launcher's CUDA-event time at small clouds
+    # is the host's launch rate), the wrapper, the plain loop. Per point and
+    # step 3 subtractions, 3 multiplies, 2 adds, a min and a compare, over the
+    # npoint - 1 steps whose arg-max the function needs; xyz and the starts
+    # read once, the indices written once. Neither binds in practice: each
+    # step ends in an arg-max over the cloud that the next step needs. The
+    # JSON line's numbers are the SA-node's at 4096 points, as before.
     fps_entry = {"name": "fps", "route": "cuda", "source": "sug_tpu_torch/csrc/fps.cu",
                  "replaces": "sug_tpu/ops/pallas_kernels.py:161", "launches": fps_launches,
-                 "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-                 "bound_ms": max(t_ops, t_bytes),
-                 "bound_by": "operations" if t_ops >= t_bytes else "bytes", "library_ms": None}
-    print(f"  FPS (B={B}, N={N_LARGE}, npoint={npoint}): kernel {ms:.4f} ms ({ms / npoint * 1e3:.2f} "
-          f"us per dependent step), {wrapper_ms:.4f} ms through the wrapper with its start check, "
-          f"plain {plain_ms:.4f} ms, bound {fps_entry['bound_ms']:.4f} ms "
-          f"by {fps_entry['bound_by']} ({nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
-    del xyz, starts
+                 "max_abs_err": 0.0, "library_ms": None, "shapes": []}
+    for b, n, npoint in FPS_SHAPES:
+        xyz = unit_clouds(b, n, gen, dev)
+        starts = torch.randint(0, n, (b,), generator=gen, device=dev)
+        iters = 50 if n * npoint <= 1 << 20 else 10
+        name = f"B={b} N={n} npoint={npoint}"
+        ms = timed_ms(lambda: gk._launch_fps(xyz, npoint, starts), iters=iters)
+        dev_ms = kernel_split(lambda: gk._launch_fps(xyz, npoint, starts), f"FPS {name}", ms,
+                              (("fps", "fps_kernel"),))["fps"]
+        wrapper_ms = timed_ms(lambda: gk.fps(xyz, npoint, starts), iters=iters)
+        plain_ms = timed_ms(lambda: gk.fps_plain(xyz, npoint, starts), iters=3, warmup=1)
+        flops = 10.0 * b * n * (npoint - 1)
+        nbytes = 12.0 * b * n + 8.0 * b + 8.0 * b * npoint
+        t_ops, t_bytes = flops / F32_FLOP_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        shape = {"name": name, "ms": ms, "device_ms": dev_ms, "wrapper_ms": wrapper_ms,
+                 "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes),
+                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                 "team": list(gk.fps_plan(n))}
+        fps_entry["shapes"].append(shape)
+        if (b, n, npoint) == (B, N_LARGE, 64):
+            fps_entry.update({k: shape[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")})
+        print(f"  FPS ({name}, team {shape['team']}): kernel {ms:.4f} ms through its launcher, "
+              f"{dev_ms:.4f} ms on the device ({dev_ms / npoint * 1e3:.3f} us per dependent "
+              f"step), {wrapper_ms:.4f} ms through the wrapper, plain {plain_ms:.4f} ms, bound "
+              f"{shape['bound_ms']:.5f} ms by {shape['bound_by']} ({nbytes / 1e6:.3f} MB, "
+              f"{flops / 1e9:.4f} GFLOP)", flush=True)
+        del xyz, starts
 
     # the PointNet inference forward per batch of 64 at 4096 and at 1024 points
     pn_batch_1024 = torch.from_numpy(PointCloudDataset(
@@ -1733,6 +1825,7 @@ def main() -> None:
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         with torch.no_grad():
             fwd_ms = timed_ms(lambda: ensemble_logits(pn_model, pc), iters=10)
         peak = torch.cuda.max_memory_allocated()
@@ -1742,6 +1835,8 @@ def main() -> None:
         with torch.no_grad():
             profile_device(lambda: ensemble_logits(pn_model, pc), f"Pointnet inference forward N={n}",
                            fwd_ms)
+        # 2 warm-up, 10 timed and 3 profiled forwards
+        check_launches(f"Pointnet inference forward N={n}", "Pointnet", n, 0, 15)
     del pn_model, pn_batch, pn_batch_1024
 
     # the DG train steps: B=64 source + 64 target clouds, full MSA/SDA loss,
@@ -1763,6 +1858,7 @@ def main() -> None:
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        reset_counts()
         step_ms = timed_ms(lambda: trainer.train_step(*step_args[n], *lrs), iters=iters)
         peak = torch.cuda.max_memory_allocated()
         print(f"DG train step ({model_name}, B={B}+{B}, N={n}, geo+sem soft-MMD, "
@@ -1771,6 +1867,8 @@ def main() -> None:
               "what the script held before)", flush=True)
         profile_device(lambda: trainer.train_step(*step_args[n], *lrs),
                        f"{model_name} DG train step N={n}", step_ms, iters=2)
+        # 2 warm-up, the timed and 2 profiled steps
+        check_launches(f"{model_name} DG train step N={n}", model_name, n, iters + 4, 0)
         del trainer
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -63,7 +63,7 @@ class SelfAdaptiveNodeModule(nn.Module):
         node_loc = (fpoint_loc + node_offset).contiguous()
         residual_fea = self.residual(feats)  # (B, N, FC_DIM)
         zeros_v = torch.zeros(node_loc.shape[:2] + (FC_DIM,),
-                              dtype=torch.float32, device=feats.device)
+                              dtype=feats.dtype, device=feats.device)
         node_fea = fused_cross_edgeconv_reduce(
             node_loc, xyz, residual_fea, zeros_v, min(NSAMPLE, xyz.shape[1])
         )[0]

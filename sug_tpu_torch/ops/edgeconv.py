@@ -100,8 +100,11 @@ def check_fwd_kernel_limits(B: int, S: int, N: int, C: int, F: int, k: int) -> N
 def _check(q, kv, u, v, k: int) -> None:
     names = ("q", "kv", "u", "v")
     for name, t in zip(names, (q, kv, u, v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"edgeconv_reduce: {name} must be float32, got {t.dtype}")
+        if t.dtype != torch.float32 and not (t.dtype == torch.float64 and t.device.type == "cpu"):
+            raise TypeError(f"edgeconv_reduce: {name} must be float32 (or float64 on the CPU), "
+                            f"got {t.dtype}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"edgeconv_reduce: {name} is {t.dtype}, q {q.dtype}")
         if t.dim() != 3:
             raise ValueError(f"edgeconv_reduce: {name} must be rank 3, got {tuple(t.shape)}")
         if not t.is_contiguous():
@@ -146,7 +149,8 @@ def edgeconv_reduce(q, kv, u, v, k: int) -> Outputs:
     (B,N,F) plus ``v`` (B,S,F): amax, amin, s1, s2 (B,S,F) f32 and idx
     (B,S,k) int32. Self-kNN passes ``q is kv`` (the point itself included).
 
-    CPU tensors go to the plain version, CUDA tensors to the kernels; a
+    CPU tensors (f32, or f64 in every input) go to the plain version, CUDA
+    tensors (f32) to the kernels; a
     build or launch failure raises, and so does a shape beyond the kernels'
     limits (``check_fwd_kernel_limits``) on either device. One call launches
     the two kernels ``select`` and ``gather``; ``edgeconv_reduce.launches``
@@ -219,8 +223,11 @@ def _check_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2) -> None:
     F = u.shape[-1]
     names = ("u", "v", "amax", "amin", "damax", "damin", "ds1", "ds2")
     for name, t in zip(names, (u, v, amax, amin, damax, damin, ds1, ds2)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"edgeconv_reduce_bwd: {name} must be float32, got {t.dtype}")
+        if t.dtype != torch.float32 and not (t.dtype == torch.float64 and t.device.type == "cpu"):
+            raise TypeError(f"edgeconv_reduce_bwd: {name} must be float32 (or float64 on the "
+                            f"CPU), got {t.dtype}")
+        if t.dtype != u.dtype:
+            raise TypeError(f"edgeconv_reduce_bwd: {name} is {t.dtype}, u {u.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"edgeconv_reduce_bwd: {name} must be contiguous")
         if t.device != idx.device:
@@ -334,8 +341,8 @@ def _launch_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2):
 def edgeconv_reduce_bwd(idx, u, v, amax, amin, damax, damin, ds1, ds2):
     """Backward of ``edgeconv_reduce`` with respect to ``u`` and ``v``: idx
     (B,S,k) int32, u (B,N,F), and v, amax, amin and the four output
-    cotangents (B,S,F), all f32 contiguous; returns du (B,N,F) and dv
-    (B,S,F).
+    cotangents (B,S,F), all f32 contiguous (or all f64 on the CPU); returns
+    du (B,N,F) and dv (B,S,F).
 
     CPU tensors go to the plain version, CUDA tensors to the kernels; a build
     or launch failure raises. One call launches the three kernels ``csr``,

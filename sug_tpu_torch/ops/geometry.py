@@ -6,12 +6,14 @@ k-nearest selection breaks distance ties by the lowest index, as
 and the first k taken, because ``torch.topk`` guarantees no tie order.
 
 Large clouds route as the JAX package routes them (``chamfer_is_tiled``,
-``fps_is_fused``, ``knn_is_blockwise``): the chamfer and FPS to the wrappers
-of ``ops/geometry_kernels.py``, which launch the CUDA kernels on the card
-and run the same plain code as below on the CPU, and the kNN (a cloud's own
+``knn_is_blockwise``): the chamfer to the wrapper of
+``ops/geometry_kernels.py``, which launches the CUDA kernel on the card and
+runs the same plain code as below on the CPU, and the kNN (a cloud's own
 and, for the plain EdgeConv, a query set's among the cloud) to the plain
-``knn_blockwise``. The JAX package routes the first two only on a TPU, and
-FPS only where ``npoint % 8 == 0``, a Mosaic tiling limit the port drops.
+``knn_blockwise``. FPS goes to the wrapper ``geometry_kernels.fps`` at every
+size: the JAX package takes its Pallas kernel only from 4096 points on a
+TPU, where ``npoint % 8 == 0``, because below that its ``fori_loop`` is
+already one compiled program; on the card the same function is one kernel.
 """
 
 from __future__ import annotations
@@ -21,7 +23,6 @@ from typing import Optional
 import torch
 
 CHAMFER_TILED_ABOVE = 2048  # points, in either cloud
-FPS_FUSED_FROM = 4096  # points
 KNN_BLOCKWISE_ABOVE = 4096  # points
 
 
@@ -29,12 +30,6 @@ def chamfer_is_tiled(n: int, m: int) -> bool:
     """Whether the chamfer of N- and M-point clouds takes ``chamfer_tiled``
     (no (B, N, M) matrix), as ``geometry.py:297`` of the JAX package."""
     return n > CHAMFER_TILED_ABOVE or m > CHAMFER_TILED_ABOVE
-
-
-def fps_is_fused(n: int) -> bool:
-    """Whether FPS of an N-point cloud takes the one-kernel ``fps``, as
-    ``geometry.py:175`` of the JAX package (without its npoint condition)."""
-    return n >= FPS_FUSED_FROM
 
 
 def knn_is_blockwise(n: int) -> bool:
@@ -112,13 +107,12 @@ def farthest_point_sample(
     xyz: torch.Tensor, npoint: int, start_idx: Optional[torch.Tensor] = None
 ) -> torch.Tensor:
     """Farthest point sampling ``(B, N, 3) -> (B, npoint)`` int64, starting at
-    ``start_idx`` (B,) of each cloud, or at index 0 when it is None: the
-    plain loop ``fps_plain``, or from 4096 points the wrapper ``fps``."""
+    ``start_idx`` (B,) of each cloud, or at index 0 when it is None, through
+    the wrapper ``fps`` at every N: the kernel on the card, the plain loop on
+    the CPU."""
     from sug_tpu_torch.ops import geometry_kernels
 
-    if fps_is_fused(xyz.shape[1]):
-        return geometry_kernels.fps(xyz, npoint, start_idx)
-    return geometry_kernels.fps_plain(xyz, npoint, start_idx)
+    return geometry_kernels.fps(xyz.contiguous(), npoint, start_idx)
 
 
 def query_ball_point(

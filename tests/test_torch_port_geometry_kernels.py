@@ -109,7 +109,6 @@ def test_fps_against_fps_pallas(pad):
     want = np.asarray(jpk.fps_pallas(jnp.asarray(xyz), 64, jnp.asarray(start)))
     got = tg.farthest_point_sample(torch.from_numpy(xyz), 64, torch.from_numpy(start)).numpy()
     np.testing.assert_array_equal(got, want)
-    assert tg.fps_is_fused(4096)
     np.testing.assert_array_equal(gk.fps_plain(torch.from_numpy(xyz), 64,
                                                torch.from_numpy(start)).numpy(), want)
 
@@ -127,7 +126,6 @@ def test_routing_follows_the_jax_thresholds(monkeypatch):
 
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     monkeypatch.setattr(jpk, "chamfer_pallas", sentinel("chamfer"))
-    monkeypatch.setattr(jpk, "fps_pallas", sentinel("fps"))
     monkeypatch.setattr(jg, "knn_blockwise", sentinel("knn"))
     for n, m in ((2048, 2048), (2049, 16), (16, 2049), (2048, 1)):
         routed.clear()
@@ -135,12 +133,35 @@ def test_routing_follows_the_jax_thresholds(monkeypatch):
         assert (routed == ["chamfer"]) == tg.chamfer_is_tiled(n, m), (n, m)
     for n in (4095, 4096, 4097):
         routed.clear()
-        # npoint 8: the JAX package's Mosaic condition npoint % 8 == 0 holds
-        jg.farthest_point_sample.__wrapped__(jnp.zeros((1, n, 3)), 8)
-        assert (routed == ["fps"]) == tg.fps_is_fused(n), n
-        routed.clear()
         jg.knn_indices(jnp.zeros((1, n, 1)), 1)
         assert (routed == ["knn"]) == tg.knn_is_blockwise(n), n
+
+
+def test_fps_leaves_the_jax_threshold(monkeypatch):
+    """The JAX package takes its Pallas FPS on a TPU only from 4096 points and
+    where npoint % 8 == 0 (below, its ``fori_loop`` is one compiled program);
+    the port's ``farthest_point_sample`` takes the wrapper ``fps`` at every
+    size (ROADMAP.md §3, deliberate differences). Observed by patching the
+    JAX backend to "tpu" and both packages' FPS to sentinels."""
+    routed = []
+
+    def sentinel(name):
+        def fn(xyz, npoint, start_idx=None):
+            routed.append(name)
+            return torch.zeros((xyz.shape[0], npoint), dtype=torch.long)
+        return fn
+
+    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
+    monkeypatch.setattr(jpk, "fps_pallas", sentinel("pallas"))
+    monkeypatch.setattr(gk, "fps", sentinel("port"))
+    for n, npoint, pallas in ((4095, 8, False), (4096, 8, True), (4097, 8, True),
+                              (4096, 7, False), (1024, 64, False), (16, 4, False)):
+        routed.clear()
+        jg.farthest_point_sample.__wrapped__(jnp.zeros((1, n, 3)), npoint)
+        assert routed == (["pallas"] if pallas else []), (n, npoint)
+        routed.clear()
+        tg.farthest_point_sample(torch.zeros((1, n, 3)), npoint)
+        assert routed == ["port"], (n, npoint)
 
 
 def test_cpu_wrappers_launch_nothing():
@@ -162,13 +183,15 @@ def test_min_dists_raises_on_grad():
     with pytest.raises(ValueError, match="batch sizes differ"):
         gk.min_dists(s, torch.zeros((2, 5, 3)))
     with pytest.raises(TypeError, match="float32"):
-        gk.fps(s.double(), 4)
+        gk.fps(s.half(), 4)
 
 
 @pytest.mark.parametrize("start", [-1, 40], ids=["negative", "past_n"])
 def test_fps_rejects_a_start_out_of_range(start):
-    """The wrapper checks the starts on every device, so the card never
-    reads past a cloud and the CPU gives the same error."""
+    """On the CPU the wrapper checks the starts and raises; on the card the
+    kernel checks them itself and stops with a device-side assert
+    (``chip_smoke.py`` runs that in a child process), so it never reads past
+    a cloud and the wrapper reads nothing back to the host."""
     xyz = torch.from_numpy(_clouds(13, 2, 40))
     with pytest.raises(ValueError, match=r"start_idx must lie in \[0, 40\)"):
         gk.fps(xyz, 4, torch.tensor([0, start]))
