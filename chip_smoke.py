@@ -77,7 +77,17 @@ ends the run with a non-zero exit; the phases, in order:
    N=4096 on the card against the CPU (losses, chamfer distances and
    gradients), and again on zero-padded clouds, leaving out the BN-bias
    channels whose padded rows sit at zero up to rounding, with the CPU's
-   gradients of the batch in reverse order as a witness. Every path runs
+   gradients of the batch in reverse order as a witness; then the DG
+   trainer's other options through the same front door, one epoch each:
+   DGCNN at 1024 points with ``SUG_STACKED_FORWARD=1`` and a config that
+   inherits ``DG_unified_loss.yaml`` and turns on ``METHODS.GRL``, the
+   contrastive geo (``CL``) and the max-hard sem alignment
+   (``MAX_HARD_MMD``), 5 EdgeConv forward and 5 backward launches and 1 FPS
+   a step (the kernels at B=128); PointNet at 1024 points with
+   ``MODEL_CFG.BN_SEMANTICS per_replica`` and ``BN_GROUPS 2`` (launches as
+   its sequential path); then the stacked DGCNN loss (GRL λ = 0.7, CL,
+   max-hard) and the grouped one (2 BN groups) at B=8 on the card against
+   the CPU, held as above. Every path runs
    the FPS kernel (DGCNN's and PointNet's SA-node once a forward, PTran's
    four TransitionDowns); no path at 1024 points launches min-dists;
 5. times, with CUDA events after warm-up: each kernel shape beside its bound,
@@ -98,7 +108,11 @@ ends the run with a non-zero exit; the phases, in order:
    64, and the DGCNN, PTran and PointNet DG train steps at B=64+64 (DGCNN at
    N=1024 and 4096, PTran at 1024, PointNet at 1024 and 4096) with their
    peak memory; each with a ``torch.profiler`` breakdown of device time by
-   kernel, and its launches counted as ``MAIN_PATHS`` says.
+   kernel (its busy share and kernels a step), and its launches counted as
+   ``MAIN_PATHS`` says. The cells of ``AB_CELLS`` (DGCNN at 1024 and 4096
+   points, PTran at 1024, PointNet at 4096) run the step with the
+   sequential and the stacked forward in turns on one trainer, sequential,
+   stacked, stacked, sequential, and a summary lists each run.
 
 The line before the last is a JSON object with every kernel's numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -106,6 +120,7 @@ last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import json
 import math
@@ -168,6 +183,18 @@ MAX_ARGMAX_DISAGREE = 1
 CARD_B = 8
 MAX_LOSS_REL = 1e-3
 MAX_GRAD_REL_L2 = 1e-2
+# With BN groups the DGCNN's EdgeConv features hold many near-tied
+# neighbours, and one neighbour chosen otherwise moves some gradient leaves
+# by several percent on any device: on the CPU alone, float32 against
+# float64 (tests/test_torch_port_near_ties.py). So the grouped case compares
+# the losses and gradients on the card's neighbours (``card_neighbours``),
+# after holding the card's choice to the CPU's own: a row whose neighbour
+# set differs must hold k distinct keys and be a near tie, the k-th
+# distances of the two sets, recomputed in float64 from the CPU's features,
+# within NEAR_TIE_REL of the row's |q|² + max |key|² (the size of the
+# float32 rounding of |q|² + |key|² − 2·q·key); at most 1 − MIN_SET_AGREEMENT
+# of the rows may differ.
+NEAR_TIE_REL = 1e-5
 # Zero-padded clouds. The padded rows are copies of the origin, the mean of
 # a centred cloud, so a layer that maps the raw points linearly (PointNet's
 # conv1, its first T-Net's first layer) puts them at the mean of its
@@ -290,13 +317,34 @@ COUNTERS = ("edgeconv_fwd", "edgeconv_bwd", "vecattn_fwd", "vecattn_bwd_calls", 
 # every size, PTran's four TransitionDowns four, and above 2048 points the
 # step's chamfer two min-dists launches. A step runs the source and the
 # target forward and their backward.
+# The stacked forward (SUG_STACKED_FORWARD=1) runs the source and the target
+# clouds as one batch of 2B: one forward's launches a step, and its backward;
+# the chamfer of the geo SDA weights stays two min-dists launches. Grouped BN
+# changes no launch.
 MAIN_PATHS = {
     ("DGCNN", N_POINTS): ((10, 10, 0, 0, 2, 0), (5, 0, 0, 0, 1, 0)),
     ("PTran", N_POINTS): ((0, 0, 10, 10, 8, 0), (0, 0, 5, 0, 4, 0)),
     ("Pointnet", N_LARGE): ((2, 2, 0, 0, 2, 2), (1, 0, 0, 0, 1, 0)),
     ("Pointnet", N_POINTS): ((2, 2, 0, 0, 2, 0), (1, 0, 0, 0, 1, 0)),
     ("DGCNN", N_LARGE): ((10, 10, 0, 0, 2, 2), (5, 0, 0, 0, 1, 0)),
+    ("DGCNN", N_POINTS, "stacked"): ((5, 5, 0, 0, 1, 0), (5, 0, 0, 0, 1, 0)),
+    ("DGCNN", N_LARGE, "stacked"): ((5, 5, 0, 0, 1, 2), (5, 0, 0, 0, 1, 0)),
+    ("PTran", N_POINTS, "stacked"): ((0, 0, 5, 5, 4, 0), (0, 0, 5, 0, 4, 0)),
+    ("Pointnet", N_LARGE, "stacked"): ((1, 1, 0, 0, 1, 2), (1, 0, 0, 0, 1, 0)),
 }
+# the DG trainer's other options, through the training entry point: the
+# stacked forward with the GRL and the contrastive geo and max-hard sem
+# alignments (DGCNN), and per-replica BN in 2 groups (PointNet, sequential)
+OPTIONS_YAML = """_BASE_CONFIG_: {base}
+METHODS:
+    GRL: True
+    GEO_MMD: [{{NAME: CL, GEO_SCALE: 1}}]
+    SEM_MMD: [{{NAME: MAX_HARD_MMD, SEM_SCALE: 1}}]
+"""
+BN_GROUPS_SET = ("MODEL_CFG.BN_SEMANTICS", "per_replica", "MODEL_CFG.BN_GROUPS", "2")
+GRL_LAMBDA = 0.7  # the card-vs-CPU loss's λ, well inside the loop's sine ramp
+# phase 5's A/B cells, sequential against stacked in turns in one process
+AB_CELLS = (("DGCNN", N_POINTS), ("PTran", N_POINTS), ("Pointnet", N_LARGE), ("DGCNN", N_LARGE))
 
 
 def hmma_count(cuobjdump, library, kernel):
@@ -855,9 +903,11 @@ def synthetic_clouds(rng, m, n=N_POINTS):
     return (3.0 * pts + 1.0).astype(np.float32), labels.astype(np.int64)
 
 
-def profile_device(fn, what: str, wall_ms: float, iters: int = 3) -> None:
+def profile_device(fn, what: str, wall_ms: float, iters: int = 3):
     """Device time per call of ``fn`` by kernel (torch.profiler), and the
-    share of the CUDA-event time ``wall_ms`` the device was busy."""
+    share of the CUDA-event time ``wall_ms`` the device was busy. Returns
+    (busy share, kernels per call), or None where the profiler recorded no
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -873,12 +923,13 @@ def profile_device(fn, what: str, wall_ms: float, iters: int = 3) -> None:
     busy = sum(r[0] for r in rows)
     if busy == 0.0:
         print(f"profile {what}: the profiler recorded no device time (not measured)", flush=True)
-        return
+        return None
     print(f"profile {what}: device busy {busy:.3f} ms per call, {busy / wall_ms:.1%} of the "
           f"{wall_ms:.3f} ms call; {sum(r[1] for r in rows):.0f} kernels per call; "
           "top kernels (ms per call, launches per call):", flush=True)
     for ms, n, key in rows[:12]:
         print(f"  {ms:9.4f} ms  x{n:<5g} {key[:110]}", flush=True)
+    return busy / wall_ms, sum(r[1] for r in rows)
 
 
 def kernel_split(fn, what: str, wall_ms: float, kernels, iters: int = 3):
@@ -951,17 +1002,17 @@ def counts():
         geometry_kernels.fps.launches, geometry_kernels.min_dists.launches)))
 
 
-def expected(model_name, num_points, steps, evals):
+def expected(model_name, num_points, steps, evals, stacked=False):
     """The launch counts of ``steps`` train steps and ``evals`` eval (or
     serving) batches of a main path, by name, from ``MAIN_PATHS``."""
-    per_step, per_eval = MAIN_PATHS[(model_name, num_points)]
+    per_step, per_eval = MAIN_PATHS[(model_name, num_points) + (("stacked",) if stacked else ())]
     return {k: steps * s + evals * e for k, s, e in zip(COUNTERS, per_step, per_eval)}
 
 
-def check_launches(what, model_name, num_points, steps, evals):
+def check_launches(what, model_name, num_points, steps, evals, stacked=False):
     """Fails unless the launches since ``reset_counts`` are ``MAIN_PATHS``'
     for ``steps`` train steps and ``evals`` eval batches of the path."""
-    got, want = counts(), expected(model_name, num_points, steps, evals)
+    got, want = counts(), expected(model_name, num_points, steps, evals, stacked)
     print(f"  {what}: launches {got}", flush=True)
     if got != want:
         fail(f"{what}: launches {got}, expected {want} for {steps} steps and {evals} eval "
@@ -977,30 +1028,48 @@ def va_bwd_launches_per_call(batch):
     return {kernel: len(VA_SHAPES) if kernel == "reduce" else chunks for kernel in VA_BWD_KERNELS}
 
 
-def train_run(train_main, root, epochs, model_name, num_points, extra=()):
-    """One run of the training front door on the card (``DG_unified_loss.yaml``,
-    with ``--set Model`` for DGCNN and PTran; PointNet is the config's own
-    model), counting launches; fails unless every loss is finite and the
-    counts are exactly ``MAIN_PATHS``' per step and eval batch (for PTran each
-    backward kernel as ``va_bwd_launches_per_call`` says). Returns the
-    result, the counts and the backward kernels' counts."""
-    argv = ["--source", "modelnet", "--cfg", YAML, "--batch_size", str(B),
+@contextlib.contextmanager
+def stacked_forward(on: bool):
+    """``SUG_STACKED_FORWARD`` set to 1 (``on``) or 0 inside, restored after."""
+    saved = os.environ.get("SUG_STACKED_FORWARD")
+    os.environ["SUG_STACKED_FORWARD"] = "1" if on else "0"
+    try:
+        yield
+    finally:
+        if saved is None:
+            del os.environ["SUG_STACKED_FORWARD"]
+        else:
+            os.environ["SUG_STACKED_FORWARD"] = saved
+
+
+def train_run(train_main, root, epochs, model_name, num_points, extra=(), cfg_file=YAML,
+              sets=(), stacked=False):
+    """One run of the training front door on the card (``cfg_file``, by
+    default ``DG_unified_loss.yaml``, with ``--set Model`` for DGCNN and
+    PTran, PointNet being the config's own model, and ``sets``; the stacked
+    forward when ``stacked``), counting launches; fails unless every loss is
+    finite and the counts are exactly ``MAIN_PATHS``' per step and eval batch
+    (for PTran each backward kernel as ``va_bwd_launches_per_call`` says).
+    Returns the result, the counts and the backward kernels' counts."""
+    argv = ["--source", "modelnet", "--cfg", cfg_file, "--batch_size", str(B),
             "--num_points", str(num_points), "--device", "cuda", "--ckpt_save_interval", "1",
             "--fix_random_seed", *extra, "--set", "DATA_ROOT", root,
-            "OPTIMIZATION.NUM_EPOCHES", str(epochs)]
+            "OPTIMIZATION.NUM_EPOCHES", str(epochs), *sets]
     if model_name != "Pointnet":
         argv += ["Model", model_name]
     reset_counts()
     t0 = time.perf_counter()
-    result = train_main(argv)
+    with stacked_forward(stacked):
+        result = train_main(argv)
     got = counts()
     by_kernel = dict(vector_attention.vector_attention_bwd.launches)
     seconds = time.perf_counter() - t0
     steps = sum(h["steps"] for h in result["history"])
     evals = sum(h["eval_batches"] for h in result["history"])
-    per_step = {k: (v - expected(model_name, num_points, 0, evals)[k]) / max(steps, 1)
+    per_step = {k: (v - expected(model_name, num_points, 0, evals, stacked)[k]) / max(steps, 1)
                 for k, v in got.items() if v}
-    print(f"train_dg_single_gpu {model_name} --num_points {num_points} epochs "
+    variant = " ".join((["stacked"] if stacked else []) + list(sets) + [os.path.basename(cfg_file)])
+    print(f"train_dg_single_gpu {model_name} ({variant}) --num_points {num_points} epochs "
           f"{[h['epoch'] for h in result['history']]}: {steps} steps, {evals} eval batches in "
           f"{seconds:.1f} s; launches {got}, per step {per_step}"
           + (f", backward kernels {by_kernel}" if model_name == "PTran" else ""), flush=True)
@@ -1010,7 +1079,7 @@ def train_run(train_main, root, epochs, model_name, num_points, extra=()):
               flush=True)
         if not all(math.isfinite(h[k]) for k in ("loss_cls", "loss_geo", "loss_sem")):
             fail(f"training epoch {h['epoch']}: non-finite loss {h}")
-    want = expected(model_name, num_points, steps, evals)
+    want = expected(model_name, num_points, steps, evals, stacked)
     per_call = va_bwd_launches_per_call(B)
     want_by_kernel = {kernel: (2 * steps * n if model_name == "PTran" else 0)
                       for kernel, n in per_call.items()}
@@ -1040,14 +1109,112 @@ def train_and_resume(train_main, rng, model_name, num_points=N_POINTS):
     return got, by_kernel
 
 
-def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None):
+def options_runs(train_main, rng, options_yaml):
+    """The DG trainer's other options through the training front door, one
+    epoch each on a synthetic PointDA tree: DGCNN with the stacked forward,
+    the GRL and the contrastive geo and max-hard sem alignments
+    (``options_yaml``), and PointNet with per-replica BN in 2 groups on the
+    sequential forward. Returns the summed counts of the two runs."""
+    from sug_tpu_torch.engine import dg_trainer
+
+    groups, set_bn_groups = [], dg_trainer.set_bn_groups
+
+    def recording(module, n, *args):  # the group count each trainer sets
+        groups.append(n)
+        set_bn_groups(module, n, *args)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_options_") as tmp:
+        root = os.path.join(tmp, "data", "PointDA_data")
+        write_pointda_tree(root, rng, N_POINTS)
+        _, stacked, _ = train_run(train_main, root, 1, "DGCNN", N_POINTS, cfg_file=options_yaml,
+                                  stacked=True)
+        dg_trainer.set_bn_groups = recording
+        try:
+            _, grouped, _ = train_run(train_main, root, 1, "Pointnet", N_POINTS, sets=BN_GROUPS_SET)
+        finally:
+            dg_trainer.set_bn_groups = set_bn_groups
+    if groups != [2]:
+        fail(f"the per-replica BN run set BN groups {groups}, expected [2]")
+    return {k: stacked[k] + grouped[k] for k in COUNTERS}
+
+
+def near_tie_gaps(q, kv, a, b):
+    """For the rows where the neighbour index sets ``a`` and ``b`` (B, S, k)
+    of queries ``q`` (B, S, C) among keys ``kv`` (B, N, C) differ: the gap
+    between the two sets' k-th distances, in float64, over the row's
+    |q|² + max |key|² (the scale of float32's rounding of the distance), and
+    whether ``a`` repeats an index on the row. Returns (gaps (R,), repeats
+    (R,) bool) for the R differing rows."""
+    a_s, b_s = a.sort(-1).values, b.sort(-1).values
+    bi, si = (a_s != b_s).any(-1).nonzero(as_tuple=True)
+    qq = q[bi, si].double()[:, None, :]  # (R, 1, C)
+    dist, norms = [], []
+    for idx in (a, b):
+        keys = kv[bi[:, None], idx[bi, si]].double()  # (R, k, C)
+        dist.append((keys - qq).square().sum(-1).amax(-1))
+        norms.append(keys.square().sum(-1).amax(-1))
+    scale = qq[:, 0].square().sum(-1) + torch.maximum(*norms)
+    gaps = (dist[0] - dist[1]).abs() / scale.clamp(min=torch.finfo(torch.float64).tiny)
+    return gaps, (a_s[bi, si, 1:] == a_s[bi, si, :-1]).any(-1)
+
+
+@contextlib.contextmanager
+def card_neighbours(device, calls, order, differ):
+    """Around one ``_loss`` of ``card_against_cpu``: on the card, record the
+    neighbour indices of every EdgeConv forward into ``calls``; on the CPU,
+    have the plain path's kNN return them in the same order (the batch in
+    ``order``), after holding each row where the CPU's own kNN chose another
+    set to a near tie (``near_tie_gaps``). ``differ`` gathers [rows, rows
+    the CPU chose otherwise, the largest gap over NEAR_TIE_REL's scale,
+    rows with a repeated index]."""
+    if device == "cuda":
+        launch = edgeconv._launch
+
+        def recording(q, kv, u, v, k):
+            out = launch(q, kv, u, v, k)
+            calls.append(out[4].cpu())
+            return out
+
+        edgeconv._launch = recording
+        try:
+            yield
+        finally:
+            edgeconv._launch = launch
+        return
+    knn, replay = edgeconv.cross_knn_indices, iter(calls)
+
+    def replaying(q, kv, k):
+        own, card = knn(q, kv, k), next(replay)
+        # a stacked batch holds the source, then the target clouds
+        rows = order if len(card) == len(order) else torch.cat([order, order + len(order)])
+        card = card[rows].to(torch.int64)
+        gaps, repeats = near_tie_gaps(q, kv, card, own)
+        differ[0] += own.shape[0] * own.shape[1]
+        differ[1] += len(gaps)
+        differ[2] = max([differ[2], *gaps.tolist()])
+        differ[3] += int(repeats.sum())
+        return card
+
+    edgeconv.cross_knn_indices = replaying
+    try:
+        yield
+    finally:
+        edgeconv.cross_knn_indices = knn
+
+
+def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None,
+                     grl_const=0.0, variant="", replay=False):
     """One ``_loss(train=True)`` at B=8 with the same weights, batch, FPS
     starts and no dropout, on the card and on the CPU plain path: the losses,
     the batch's chamfer distances (the geo SDA weights' input: ``mean2one``
     truncates 1/mean to an integer, so the weights alone can jump) and every
     parameter's gradient. Clouds of ``raw_points`` points (``num_points``
     when None) are zero-padded to ``num_points``, and then the gradients are
-    compared as ``PAD_ZERO_REL`` says."""
+    compared as ``PAD_ZERO_REL`` says. ``grl_const`` is the GRL's λ where
+    ``cfg`` turns it on; ``variant`` names the configuration in the output.
+    With ``replay`` the CPU runs on the card's EdgeConv neighbours, each row
+    it would choose otherwise held to a near tie (``NEAR_TIE_REL``); without
+    it each device chooses its own."""
     from sug_tpu_torch.data.datasets import PointCloudDataset, make_synthetic_pointda
     from sug_tpu_torch.engine.dg_trainer import DGTrainer
     from sug_tpu_torch.models.bn import BatchNorm
@@ -1055,6 +1222,7 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None)
 
     raw_points = raw_points or num_points
     padded = raw_points < num_points
+    tag = f"{model_name} ({variant})" if variant else model_name
     pts, labels = make_synthetic_pointda(num_per_class=2, num_points=raw_points, seed=7)
     ds = PointCloudDataset("modelnet", pts, labels, num_points=num_points, model=model_name)
     fps = [torch.from_numpy(rng.integers(0, num_points, CARD_B)) for _ in range(2)]
@@ -1063,6 +1231,8 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None)
     if padded:
         orders["cpu, batch reversed"] = ("cpu", torch.arange(CARD_B).flip(0))
     runs, chamfer, pad_abs, rms = {}, {}, {}, {}
+    # the card's idx by pass; [rows, rows the CPU chose otherwise, largest gap, repeats]
+    neighbours, differ = {}, [0, 0, 0.0, 0]
 
     def record(name):  # a BN's output on the padded rows, and its rms on the real ones
         def hook(module, args, out):
@@ -1090,7 +1260,10 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None)
             chamfer[label] = chamfer_distance(batch[0], batch[2]).double().cpu()
         out = {}
         for mmd_on in ((True, False) if whole else (False,)):
-            total, metrics = tr._loss(*batch, *starts, mmd_on=mmd_on, train=True)
+            with (card_neighbours(dev, neighbours.setdefault(mmd_on, []), order, differ)
+                  if replay else contextlib.nullcontext()):
+                total, metrics = tr._loss(*batch, *starts, mmd_on=mmd_on, train=True,
+                                          grl_const=grl_const)
             g_all = None if mmd_on else tr.grads(total)
             out[mmd_on] = ({k: v.detach().item() for k, v in metrics.items()},
                            None if g_all is None else
@@ -1101,8 +1274,17 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None)
     # unit-ball clouds: every min within MIN_DIST_REL of max(|q|² + |s|², 1) <= 2
     chamfer_err = (chamfer["cuda"] - chamfer["cpu"]).abs().max().item()
     if chamfer_err > 2 * 2 * MIN_DIST_REL:
-        fail(f"{model_name} card vs CPU at N={num_points}: chamfer distances differ by "
+        fail(f"{tag} card vs CPU at N={num_points}: chamfer distances differ by "
              f"{chamfer_err:.3e} (> {2 * 2 * MIN_DIST_REL})")
+    rows, chosen_otherwise, widest, repeats = differ
+    if repeats:
+        fail(f"{tag} card vs CPU: the card's EdgeConv neighbour sets repeat a key on {repeats} rows")
+    if widest > NEAR_TIE_REL:
+        fail(f"{tag} card vs CPU: where the CPU's kNN chose other EdgeConv neighbours, the k-th "
+             f"distances differ by up to {widest:.3e} of |q|² + |key|² (> {NEAR_TIE_REL})")
+    if chosen_otherwise > (1.0 - MIN_SET_AGREEMENT) * rows:
+        fail(f"{tag} card vs CPU: the CPU's kNN chose other EdgeConv neighbour sets on "
+             f"{chosen_otherwise} of {rows} rows (more than {1.0 - MIN_SET_AGREEMENT:.1%})")
     worst_loss = 0.0
     for mmd_on in (True, False):
         for k, want in runs["cpu"][mmd_on][0].items():
@@ -1110,9 +1292,12 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None)
             rel = abs(got - want) / max(abs(want), 1e-12)
             worst_loss = max(worst_loss, rel)
             if rel > MAX_LOSS_REL:
-                fail(f"{model_name} card vs CPU: {k} (mmd {mmd_on}) {got} vs {want}, {rel:.3e} relative")
-    what = (f"{model_name} DG _loss(train=True) at B={CARD_B}, N={num_points} ({raw_points} "
-            f"real points), card vs CPU: chamfer distances within {chamfer_err:.3e} (1/mean "
+                fail(f"{tag} card vs CPU: {k} (mmd {mmd_on}) {got} vs {want}, {rel:.3e} relative")
+    on = (f" on the card's EdgeConv neighbours (the CPU's kNN chose another set on "
+          f"{chosen_otherwise} of {rows} rows, k-th distances within {widest:.3e} of "
+          f"|q|² + |key|²)" if replay else "")
+    what = (f"{tag} DG _loss(train=True) at B={CARD_B}, N={num_points} ({raw_points} "
+            f"real points), card vs CPU{on}: chamfer distances within {chamfer_err:.3e} (1/mean "
             f"{1.0 / chamfer['cpu'].mean().item():.4f}); losses within {worst_loss:.3e} relative "
             f"(total {runs['cuda'][True][0]['loss_total']:.6f})")
     g_cpu = runs["cpu"][False][1]
@@ -1143,7 +1328,7 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None)
         print(f"  left out: {'; '.join(left_out) or 'nothing'}; elsewhere the CPU's own gradients "
               f"with the batch reversed within {own[moved]:.3e} (worst {moved})", flush=True)
     if rel[name] > MAX_GRAD_REL_L2:
-        fail(f"{model_name} card vs CPU: gradient of {name} differs by {rel[name]:.3e} relative L2")
+        fail(f"{tag} card vs CPU: gradient of {name} differs by {rel[name]:.3e} relative L2")
 
 
 def check_logits(what, card, cpu, preds):
@@ -1635,6 +1820,25 @@ def main() -> None:
     card_against_cpu(pn_cfg, rng, "Pointnet", N_LARGE)
     card_against_cpu(pn_cfg, rng, "Pointnet", N_LARGE, raw_points=2048)
 
+    # 4j. the DG trainer's other options through the training front door: the
+    # stacked forward with GRL, CL and max-hard MMD (DGCNN), and per-replica
+    # BN in 2 groups (PointNet); 4k. the stacked and the grouped DGCNN DG
+    # loss on the card against the CPU plain path
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cfg_") as tmp:
+        options_yaml = os.path.join(tmp, "DG_stacked_grl_cl.yaml")
+        with open(options_yaml, "w") as f:
+            f.write(OPTIONS_YAML.format(base=YAML))
+        got = options_runs(train_dg_single_gpu.main, rng, options_yaml)
+        _, options_cfg = parser_config(["--cfg", options_yaml, "--set", "Model", "DGCNN"])
+    fwd_launches += got["edgeconv_fwd"]
+    bwd_launches += got["edgeconv_bwd"]
+    fps_launches += got["fps"]
+    with stacked_forward(True):
+        card_against_cpu(options_cfg, rng, "DGCNN", grl_const=GRL_LAMBDA,
+                         variant=f"stacked, GRL {GRL_LAMBDA}, CL geo, max-hard sem")
+    _, grouped_cfg = parser_config(["--cfg", YAML, "--set", "Model", "DGCNN", *BN_GROUPS_SET])
+    card_against_cpu(grouped_cfg, rng, "DGCNN", variant="BN groups 2", replay=True)
+
     # 5. times
     print(f"times (CUDA events), card: {smi}", flush=True)
     entry = {"name": "edgeconv_fwd", "route": "cuda",
@@ -1849,27 +2053,56 @@ def main() -> None:
         step_args[n] = [torch.from_numpy(a).to(dev) for a in
                         (clouds[:B], labels[:B], clouds[B:], labels[B:])]
     lrs = (1e-4, 1e-4, 1e-4)
+
+    def time_step(trainer, model_name, n, iters, stacked):
+        """One timed run of the step: ms, clouds/s, peak memory, busy share and
+        kernels per step, and its launches checked against ``MAIN_PATHS``."""
+        forward = "stacked" if stacked else "sequential"
+        with stacked_forward(stacked):
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counts()
+            step_ms = timed_ms(lambda: trainer.train_step(*step_args[n], *lrs), iters=iters)
+            peak = torch.cuda.max_memory_allocated()
+            print(f"DG train step ({model_name}, {forward} forward, B={B}+{B}, N={n}, geo+sem "
+                  f"soft-MMD, augmentation): {step_ms:.3f} ms per step, "
+                  f"{2 * B / step_ms * 1e3:.1f} clouds/s; peak device memory {peak / 2**20:.1f} "
+                  f"MiB ({(peak - held) / 2**20:.1f} MiB above what the script held before)",
+                  flush=True)
+            busy = profile_device(lambda: trainer.train_step(*step_args[n], *lrs),
+                                  f"{model_name} DG train step N={n} ({forward})", step_ms,
+                                  iters=2)
+            # 2 warm-up, the timed and 2 profiled steps
+            check_launches(f"{model_name} DG train step N={n} ({forward})", model_name, n,
+                           iters + 4, 0, stacked)
+        return {"ms": step_ms, "clouds_per_s": 2 * B / step_ms * 1e3, "peak_mib": peak / 2**20,
+                "busy": None if busy is None else busy[0],
+                "kernels": None if busy is None else busy[1]}
+
+    # the A/B cells run sequential, stacked, stacked, sequential on one trainer
+    ab = {}
     for model_name, model_cfg, iters, n in (("DGCNN", cfg, 5, N_POINTS),
                                             ("PTran", ptran_cfg, 3, N_POINTS),
                                             ("Pointnet", pn_cfg, 5, N_LARGE),
                                             ("Pointnet", pn_cfg, 5, N_POINTS),
                                             ("DGCNN", cfg, 3, N_LARGE)):
         trainer = DGTrainer(model_cfg, model_name=model_name, device=dev, seed=0, num_points=n)
-        torch.cuda.synchronize()
-        held = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        step_ms = timed_ms(lambda: trainer.train_step(*step_args[n], *lrs), iters=iters)
-        peak = torch.cuda.max_memory_allocated()
-        print(f"DG train step ({model_name}, B={B}+{B}, N={n}, geo+sem soft-MMD, "
-              f"augmentation): {step_ms:.3f} ms per step, {2 * B / step_ms * 1e3:.1f} clouds/s; "
-              f"peak device memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above "
-              "what the script held before)", flush=True)
-        profile_device(lambda: trainer.train_step(*step_args[n], *lrs),
-                       f"{model_name} DG train step N={n}", step_ms, iters=2)
-        # 2 warm-up, the timed and 2 profiled steps
-        check_launches(f"{model_name} DG train step N={n}", model_name, n, iters + 4, 0)
+        order = (False, True, True, False) if (model_name, n) in AB_CELLS else (False,)
+        runs = [time_step(trainer, model_name, n, iters, stacked) for stacked in order]
+        if len(runs) > 1:
+            ab[f"{model_name} N={n}"] = {"sequential": [runs[0], runs[3]],
+                                         "stacked": [runs[1], runs[2]]}
         del trainer
+    print(f"stacked against sequential forward, DG train step at B={B}+{B} (card: {smi}; "
+          "runs in the order sequential, stacked, stacked, sequential):", flush=True)
+    for cell, by_forward in ab.items():
+        for forward, runs in by_forward.items():
+            print(f"  A/B {cell} {forward}: " + "; ".join(
+                f"{r['ms']:.4f} ms, {r['clouds_per_s']:.1f} clouds/s, busy "
+                + ("not measured" if r["busy"] is None else
+                   f"{r['busy']:.1%}, {r['kernels']:.0f} kernels a step")
+                + f", peak {r['peak_mib']:.1f} MiB" for r in runs), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [entry, bwd_entry, va_entry, va_bwd_entry, md_entry, fps_entry]}))

@@ -27,7 +27,9 @@ synthetic datasets, ``geometry.farthest_point_sample``, the wrapper
   PointNet step at 4096 (B=64+64), and the DGCNN, PTran and PointNet
   inference forwards at 1024 points (B=64), each in ms from CUDA events
   after warm-up with the device's busy share (``torch.profiler`` kernel time
-  over the CUDA-event time) and its FPS launches per call;
+  over the CUDA-event time), its kernels per call (every kernel
+  ``torch.profiler`` saw), its peak of allocated memory and its FPS
+  launches per call;
 
 then one JSON line of them all (ms, busy shares and launch counts by name)
 with the card's name and power limit. It
@@ -159,16 +161,20 @@ def main() -> None:
             del xyz, starts
 
     def path(name, fn, iters):
-        """A step or forward: CUDA-event ms, busy share, FPS launches per call."""
+        """A step or forward: CUDA-event ms, busy share, kernels per call,
+        peak allocated MiB, FPS launches per call."""
         ms = cs.timed_ms(fn, iters=iters)
-        busy, _ = device_ms(fn, torch, None, iters=2)
+        busy, kernels = device_ms(fn, torch, None, iters=2)
         gk.fps.launches = 0
+        torch.cuda.reset_peak_memory_stats()
         fn()
         torch.cuda.synchronize()
-        launches = gk.fps.launches
-        record(name, ms, f" (device busy {busy:.3f} ms, {busy / ms:.1%}; {launches} FPS "
-               "kernel launches a call)")
+        launches, peak = gk.fps.launches, torch.cuda.max_memory_allocated() / 2**20
+        record(name, ms, f" (device busy {busy:.3f} ms, {busy / ms:.1%}; {kernels:.1f} kernels "
+               f"a call; peak {peak:.1f} MiB; {launches} FPS kernel launches a call)")
         times[f"{name} busy share"] = busy / ms
+        times[f"{name} kernels"] = kernels
+        times[f"{name} peak MiB"] = peak
         times[f"{name} fps launches"] = launches
 
     rng = np.random.default_rng(0)

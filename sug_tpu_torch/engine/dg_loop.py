@@ -1,8 +1,9 @@
 """The DG training loop: counterpart of ``sug_tpu/engine/dg_loop.py`` on one
 device (no mesh, native loader, profiler trace or multi-process).
 
-Per epoch: the cosine and dis learning rates, ``PURE_CLS_EPOCH`` gating of
-the MMD losses, paired source/target split batches (shuffled by epoch), eval
+Per epoch: the cosine and dis learning rates, the GRL's λ
+``sin((epoch + 1) / max_epoch · π/2)``, ``PURE_CLS_EPOCH`` gating of the MMD
+losses, paired source/target split batches (shuffled by epoch), eval
 on the source test split and the two unseen datasets with best-accuracy
 tracking and a ``best`` export when test1 improves, and a periodic
 checkpoint; ``--resume`` continues at the saved epoch.
@@ -11,6 +12,7 @@ checkpoint; ``--resume`` continues at the saved epoch.
 from __future__ import annotations
 
 import datetime
+import math
 import os
 import time
 from typing import Dict, List
@@ -114,6 +116,7 @@ def run_dg_training(args, cfg) -> Dict:
         lr_dis = dis_lr_schedule(base_lr, scaler, epoch)
         for tag, lr in (("lr_g", lr_g), ("lr_c", lr_c), ("lr_dis", lr_dis)):
             writer.add_scalar(tag, lr, epoch)
+        grl_const = math.sin((epoch + 1) / max_epoch * math.pi / 2)
         mmd_on = epoch >= pure_cls_epoch and mmd_weight > 0
 
         idx = epoch % len(source_iters)
@@ -125,7 +128,8 @@ def run_dg_training(args, cfg) -> Dict:
         pending = []
         t_epoch = time.perf_counter()
         for (ds_, ls_), (dt_, lt_) in zip(src_iter, tgt_iter):
-            metrics = trainer.train_step(ds_, ls_, dt_, lt_, lr_g, lr_c, lr_dis, mmd_on=mmd_on)
+            metrics = trainer.train_step(ds_, ls_, dt_, lt_, lr_g, lr_c, lr_dis, mmd_on=mmd_on,
+                                         grl_const=grl_const)
             pending.append((ds_.shape[0], metrics))
         if trainer.device.type == "cuda":
             torch.cuda.synchronize(trainer.device)

@@ -1,9 +1,17 @@
-"""The SUG DG trainer: counterpart of ``sug_tpu/engine/dg_trainer.py`` for
-the sequential (source, then target) forward.
+"""The SUG DG trainer: counterpart of ``sug_tpu/engine/dg_trainer.py``.
 
 One step: augmentation, the source and the target forward of ``NetMDA``
 (the BN running stats flow from one to the next through the module
 buffers), every loss, one backward, and the fused three-group update.
+The two forwards are one stacked forward over ``concat(source, target)``
+when ``SUG_STACKED_FORWARD=1`` (``NetMDA(domain="stacked")``: 2-group BN in
+the generator, numerically the sequential forwards' up to rounding, the
+head dropout drawn once over 2B rows); ``SUG_STACKED_FORWARD=0`` or unset
+keeps the sequential forwards for the three ported backbones. BN groups
+(``MODEL_CFG.BN_SEMANTICS: per_replica`` or ``SUG_BN_GROUPS``) are read once,
+at construction, and set on the model's BNs; with groups the forward stays
+sequential. ``METHODS.GRL`` reverses the target forward's gradient into the
+generator by the λ that ``train_step`` is given.
 
 Loss semantics, as in the JAX package:
 - cls: 0.5·crit(head 1) + 0.5·crit(head 2) on the source batch;
@@ -12,14 +20,13 @@ Loss semantics, as in the JAX package:
   unless ``TARGET_LOSS_USES_SOURCE_LABELS``), else SRC_LOSS_WEIGHT · cls;
 - geo MMD on the attended 4096-d node features with chamfer SDA weights;
 - sem MMD on the two heads' 256-d mid features with KL SDA weights;
+- either alignment as the cosine contrastive loss instead (``NAME: CL``);
 - PURE_CLS_EPOCH gating through ``mmd_on``.
 
-``model_name`` is "DGCNN", "PTran" or "Pointnet"; each runs the sequential
-forward, as in the JAX package. Config keys of paths not ported yet (GRL,
-``PRECISION: bf16`` or ``SUG_PRECISION=bf16``, per-replica or grouped BN
-(``SUG_BN_GROUPS``), the stacked forward, the KPConv
-regularizer, the CL and hard MMDs) raise ``NotImplementedError`` naming
-ROADMAP.md.
+``model_name`` is "DGCNN", "PTran" or "Pointnet". What the port does not
+have yet (the other backbones, with the KPConv regularizer, and
+``PRECISION: bf16`` or ``SUG_PRECISION=bf16``) raises
+``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -33,9 +40,14 @@ import torch
 from sug_tpu_torch import resolve_device
 from sug_tpu_torch.engine.optim import ThreeGroupOptimizer
 from sug_tpu_torch.losses.classification import cross_entropy, discrepancy, focal_loss
-from sug_tpu_torch.losses.mmd import PORTED_MMD, mmd_cal
+from sug_tpu_torch.losses.mmd import PORTED_MMD, contrastive_loss_weighted, mmd_cal
+from sug_tpu_torch.models.bn import configure_from_cfg, set_bn_groups
 from sug_tpu_torch.models.net_mda import BACKBONES, NetMDA, ensemble_logits
 from sug_tpu_torch.ops.augment import augment_batch
+
+# backbones whose default is the stacked forward (the JAX package's
+# _STACKED_DEFAULT_ON: none of the three ported ones)
+_STACKED_DEFAULT_ON: tuple = ()
 
 
 def _not_ported(what: str):
@@ -89,27 +101,27 @@ def check_precision(cfg=None) -> None:
 
 
 def check_supported(cfg, model_name: str) -> None:
-    """Raise for config keys whose paths the port does not have yet."""
+    """Raise for config keys whose paths the port does not have yet, and,
+    as the JAX package does, for a malformed BN config or an alignment
+    name the trainer does not know."""
     methods = cfg["METHODS"]
     if model_name not in BACKBONES:
         raise _not_ported(f"Model {model_name!r} (the port trains {', '.join(BACKBONES)}; "
                           "the other backbones)")
-    if methods.get("GRL", False):
-        raise _not_ported("METHODS.GRL (the gradient-reversal layer)")
     check_precision(cfg)
-    model_cfg = cfg.get("MODEL_CFG", None) or {}
-    semantics = model_cfg.get("BN_SEMANTICS", None)
-    if semantics is not None and str(semantics).lower() != "global":
-        raise _not_ported("MODEL_CFG.BN_SEMANTICS per_replica (grouped BN, ROADMAP item 10)")
-    groups = os.environ.get("SUG_BN_GROUPS", "")
-    if semantics is None and groups.isdigit() and int(groups) > 1:
-        # the JAX package's bn_groups() honours the env var unless BN_SEMANTICS is set
-        raise _not_ported(f"SUG_BN_GROUPS={groups} (grouped BN, ROADMAP item 10)")
-    if os.environ.get("SUG_STACKED_FORWARD") == "1":
-        raise _not_ported("SUG_STACKED_FORWARD=1 (the stacked both-domains forward)")
+    configure_from_cfg(cfg)
     for key in ("GEO_MMD", "SEM_MMD"):
         if key in methods and methods[key][0]["NAME"] not in PORTED_MMD:
-            raise _not_ported(f"METHODS.{key} NAME {methods[key][0]['NAME']!r}")
+            raise ValueError(f"Not supported MMD method {methods[key][0]['NAME']} "
+                             f"(METHODS.{key})")
+
+
+def stacked_forward(model_name: str) -> bool:
+    """``SUG_STACKED_FORWARD`` 1 or 0, else the backbone's default."""
+    env = os.environ.get("SUG_STACKED_FORWARD")
+    if env in ("0", "1"):
+        return env == "1"
+    return model_name in _STACKED_DEFAULT_ON
 
 
 class DGTrainer:
@@ -118,7 +130,8 @@ class DGTrainer:
     the dropout masks. ``seed`` seeds the initial weights (drawn on the CPU,
     so the same on every device) and the generator. ``num_points`` is the
     cloud size a PTran model is built for (its ``point_mix``); DGCNN and
-    Pointnet take any."""
+    Pointnet take any. ``bn_groups`` is the BN group count the config asked
+    for, set on every BN of the model."""
 
     def __init__(self, cfg, model_name: str = "DGCNN", num_class: int = 10, criterion=None,
                  augment: bool = True, device="cuda", seed: int = 0, num_points: int = 1024):
@@ -131,26 +144,62 @@ class DGTrainer:
         model = NetMDA(model_name, num_class, generator=torch.Generator().manual_seed(seed),
                        num_points=num_points)
         self.model = model.to(self.device)
+        self.model_name = model_name
+        self.bn_groups = configure_from_cfg(cfg)
+        set_bn_groups(self.model, self.bn_groups)
+        self.grl = bool(cfg["METHODS"].get("GRL", False))
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.params = list(self.model.named_parameters())
         wd = float(cfg["OPTIMIZATION"]["WEIGHT_DECAY"])
         self.optimizer = ThreeGroupOptimizer(self.params, wd)
 
-    def _forward_both(self, data_s, data_t, fps_s, fps_t, train: bool):
-        """Source then target forward. ``train=False`` is deterministic: BN
+    def _forward_both(self, data_s, data_t, fps_s, fps_t, train: bool, grl_const: float = 0.0):
+        """Source then target forward, or one stacked forward (as
+        ``stacked_forward`` says, and only without BN groups), as the
+        sequential contract's two dicts. ``train=False`` is deterministic: BN
         running stats (left unchanged), no dropout, and FPS from the given
-        starts (index 0 when None)."""
+        starts (index 0 when None). With GRL on, the target forward reverses
+        its gradient by ``grl_const``."""
         self.model.train(train)
+        grl = grl_const if self.grl else None
+        if stacked_forward(self.model_name) and self.bn_groups == 1:
+            return self._forward_stacked(data_s, data_t, fps_s, fps_t, grl)
         out_s = self.model(data_s, "source", fps_s, self.generator)
-        out_t = self.model(data_t, "target", fps_t, self.generator)
+        out_t = self.model(data_t, "target", fps_t, self.generator, grl_constant=grl)
         return out_s, out_t
 
+    def _forward_stacked(self, data_s, data_t, fps_s, fps_t, grl):
+        """Both domains through one stacked forward, split back into
+        ``(out_s, out_t)``."""
+        B = data_s.shape[0]
+        fps = None if fps_s is None else torch.cat([fps_s, fps_t])
+        out = self.model(torch.cat([data_s, data_t]), "stacked", fps, self.generator,
+                         grl_constant=grl)
+
+        def half(rows, attn):
+            d = {k: out[k][rows] for k in ("logits1", "logits2", "sem1", "sem2", "node_flat",
+                                           "global_feat")}
+            d["node_offset"] = None if out["node_offset"] is None else out["node_offset"][rows]
+            d["node_attn"] = out[attn]
+            return d
+
+        return half(slice(0, B), "node_attn"), half(slice(B, 2 * B), "node_attn_t")
+
+    def _align(self, cfg, label_s, feat_s, label_t, feat_t, data_s, data_t) -> torch.Tensor:
+        """The alignment ``cfg["NAME"]`` names: the contrastive loss for CL,
+        else ``mmd_cal`` with ``data_s``/``data_t`` for the SDA weights."""
+        if cfg["NAME"] == "CL":
+            return contrastive_loss_weighted(label_s, feat_s, label_t, feat_t)
+        return mmd_cal(label_s, feat_s, label_t, feat_t, cfg, data_s=data_s, data_t=data_t,
+                       num_class=self.num_class)
+
     def _loss(self, data_s, label_s, data_t, label_t, fps_s=None, fps_t=None,
-              mmd_on: bool = True, train: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+              mmd_on: bool = True, train: bool = True,
+              grl_const: float = 0.0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(total loss, metrics) of one batch pair; in train mode the BN
         running stats are updated in place."""
         methods = self.cfg["METHODS"]
-        out_s, out_t = self._forward_both(data_s, data_t, fps_s, fps_t, train)
+        out_s, out_t = self._forward_both(data_s, data_t, fps_s, fps_t, train, grl_const)
         crit = self.criterion
         loss_s = 0.5 * crit(out_s["logits1"], label_s) + 0.5 * crit(out_s["logits2"], label_s)
 
@@ -173,8 +222,8 @@ class DGTrainer:
         if mmd_on:
             mmd_weight = float(methods["MMD_WEIGHT"])
             geo_cfg = dict(methods["GEO_MMD"][0])
-            geo_align = mmd_cal(label_s, out_s["node_attn"], label_t, out_t["node_attn"], geo_cfg,
-                                data_s=data_s, data_t=data_t, num_class=self.num_class)
+            geo_align = self._align(geo_cfg, label_s, out_s["node_attn"], label_t,
+                                    out_t["node_attn"], data_s, data_t)
             loss_geo = mmd_weight * float(geo_cfg.get("GEO_SCALE", 1.0)) * geo_align
             total = total + loss_geo
             metrics["loss_geo"] = loss_geo
@@ -182,12 +231,10 @@ class DGTrainer:
             sem_cfg = dict(methods["SEM_MMD"][0])
             sem_scale = float(sem_cfg.get("SEM_SCALE", 1.0))
             if sem_scale > 0:
-                l1 = sem_scale * mmd_cal(label_s, out_s["sem1"], label_t, out_t["sem1"], sem_cfg,
-                                         data_s=out_s["logits1"], data_t=out_t["logits1"],
-                                         num_class=self.num_class)
-                l2 = sem_scale * mmd_cal(label_s, out_s["sem2"], label_t, out_t["sem2"], sem_cfg,
-                                         data_s=out_s["logits2"], data_t=out_t["logits2"],
-                                         num_class=self.num_class)
+                l1, l2 = (sem_scale * self._align(sem_cfg, label_s, out_s[f"sem{h}"], label_t,
+                                                  out_t[f"sem{h}"], out_s[f"logits{h}"],
+                                                  out_t[f"logits{h}"])
+                          for h in (1, 2))
                 loss_sem = mmd_weight * (0.5 * l1 + 0.5 * l2)
                 total = total + loss_sem
                 metrics["loss_sem"] = loss_sem
@@ -201,11 +248,13 @@ class DGTrainer:
     def train_step(self, data_s, label_s, data_t, label_t, lr_g: float, lr_c: float,
                    lr_dis: float, mmd_on: bool = True,
                    fps_s: Optional[torch.Tensor] = None,
-                   fps_t: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+                   fps_t: Optional[torch.Tensor] = None,
+                   grl_const: float = 0.0) -> Dict[str, torch.Tensor]:
         """One training step on (B, N, 3) clouds and (B,) labels (numpy or
         tensors). Augmentation (when on) and, where not given, the FPS starts
-        (uniform in [0, N)) are drawn from the trainer's generator. Returns the
-        detached metrics, still on the device."""
+        (uniform in [0, N)) are drawn from the trainer's generator;
+        ``grl_const`` is the GRL's λ (read only with ``METHODS.GRL``).
+        Returns the detached metrics, still on the device."""
         dev = self.device
         data_s, data_t = (torch.as_tensor(d, dtype=torch.float32, device=dev) for d in (data_s, data_t))
         label_s, label_t = (torch.as_tensor(lb, dtype=torch.long, device=dev) for lb in (label_s, label_t))
@@ -217,7 +266,8 @@ class DGTrainer:
             fps_s = torch.randint(0, N, (B,), generator=self.generator, device=dev)
         if fps_t is None:
             fps_t = torch.randint(0, N, (B,), generator=self.generator, device=dev)
-        total, metrics = self._loss(data_s, label_s, data_t, label_t, fps_s, fps_t, mmd_on, train=True)
+        total, metrics = self._loss(data_s, label_s, data_t, label_t, fps_s, fps_t, mmd_on,
+                                    train=True, grl_const=grl_const)
         self.optimizer.update(self.grads(total), lr_g, lr_c, lr_dis)
         return {k: v.detach() for k, v in metrics.items()}
 

@@ -1,14 +1,18 @@
-"""MSA/SDA alignment losses: counterpart of ``sug_tpu/losses/mmd.py`` for
-what the DG step runs: the multi-kernel Gaussian MMD, the soft
-(class-aware) MMD and the SDA sample weights, geometric (chamfer) and
-semantic (KL), with the ``mmd_cal`` dispatch for ``SOFT_MMD`` and ``OFF``.
+"""MSA/SDA alignment losses: counterpart of ``sug_tpu/losses/mmd.py``: the
+multi-kernel Gaussian MMD with its variance-ratio form, the linear and
+polynomial linear-time MMDs, the class-conditioned soft, hard and max-hard
+MMDs, the cosine contrastive alignment (``CL``), and the SDA sample
+weights, geometric (chamfer) and semantic (KL), with the ``mmd_cal``
+dispatch.
+
+The hard and max-hard MMDs select their rows with {0, 1} masks and a
+match-count normaliser, as the JAX package does, in place of the
+reference's gathers: MMD is a set statistic, so the two agree.
 
 Two quirks of the reference are kept, as the JAX package keeps them:
 ``distance2weights(method="mean2one")`` truncates ``1/mean`` to an integer
 before scaling, and ``prob_weights_soft`` normalises by the sum over the
-whole batch tensor, not per row. HARD_MMD, MAX_HARD_MMD, CL and the
-variance-ratio, linear and polynomial MMDs come with a later slice
-(ROADMAP.md).
+whole batch tensor, not per row.
 """
 
 from __future__ import annotations
@@ -22,7 +26,9 @@ from sug_tpu_torch.ops.geometry import chamfer_distance
 
 MIN_VAR_EST = 1e-8
 SIGMA_LIST = (0.01, 0.1, 1.0, 10.0, 100.0)
-PORTED_MMD = ("SOFT_MMD", "OFF")
+# every alignment the DG trainer takes as GEO_MMD/SEM_MMD NAME; CL is
+# dispatched by the trainer, the rest by mmd_cal
+PORTED_MMD = ("SOFT_MMD", "HARD_MMD", "MAX_HARD_MMD", "OFF", "CL")
 
 
 def one_hot_labels(labels: torch.Tensor, num_class: int = 10) -> torch.Tensor:
@@ -78,12 +84,122 @@ def mix_rbf_mmd2(X, Y, sigma_list: Sequence[float] = SIGMA_LIST, biased: bool = 
     return _mmd2(K_XX, K_XY, K_YY, biased=biased, sample_weights=sample_weights, mask=mask)
 
 
+def _mmd2_and_variance(K_XX, K_XY, K_YY, biased: bool = False):
+    """MMD² and its variance estimate (unmasked, unweighted)."""
+    m = float(K_XX.shape[0])
+    diag_X, diag_Y = torch.diagonal(K_XX), torch.diagonal(K_YY)
+    sum_diag_X, sum_diag_Y = torch.sum(diag_X), torch.sum(diag_Y)
+    sum_diag2_X, sum_diag2_Y = diag_X @ diag_X, diag_Y @ diag_Y
+
+    Kt_XX_sums = torch.sum(K_XX, dim=1) - diag_X
+    Kt_YY_sums = torch.sum(K_YY, dim=1) - diag_Y
+    K_XY_sums_0 = torch.sum(K_XY, dim=0)
+    K_XY_sums_1 = torch.sum(K_XY, dim=1)
+
+    Kt_XX_sum, Kt_YY_sum = torch.sum(Kt_XX_sums), torch.sum(Kt_YY_sums)
+    K_XY_sum = torch.sum(K_XY_sums_0)
+
+    Kt_XX_2_sum = torch.sum(K_XX**2) - sum_diag2_X
+    Kt_YY_2_sum = torch.sum(K_YY**2) - sum_diag2_Y
+    K_XY_2_sum = torch.sum(K_XY**2)
+
+    if biased:
+        mmd2 = ((Kt_XX_sum + sum_diag_X) / (m * m) + (Kt_YY_sum + sum_diag_Y) / (m * m)
+                - 2.0 * K_XY_sum / (m * m))
+    else:
+        mmd2 = (Kt_XX_sum / (m * (m - 1)) + Kt_YY_sum / (m * (m - 1))
+                - 2.0 * K_XY_sum / (m * m))
+
+    var_est = (
+        2.0 / (m**2 * (m - 1.0) ** 2)
+        * (2 * Kt_XX_sums @ Kt_XX_sums - Kt_XX_2_sum + 2 * Kt_YY_sums @ Kt_YY_sums - Kt_YY_2_sum)
+        - (4.0 * m - 6.0) / (m**3 * (m - 1.0) ** 3) * (Kt_XX_sum**2 + Kt_YY_sum**2)
+        + 4.0 * (m - 2.0) / (m**3 * (m - 1.0) ** 2)
+        * (K_XY_sums_1 @ K_XY_sums_1 + K_XY_sums_0 @ K_XY_sums_0)
+        - 4.0 * (m - 3.0) / (m**3 * (m - 1.0) ** 2) * K_XY_2_sum
+        - (8 * m - 12) / (m**5 * (m - 1)) * K_XY_sum**2
+        + 8.0 / (m**3 * (m - 1.0))
+        * (1.0 / m * (Kt_XX_sum + Kt_YY_sum) * K_XY_sum
+           - Kt_XX_sums @ K_XY_sums_1 - Kt_YY_sums @ K_XY_sums_0)
+    )
+    return mmd2, var_est
+
+
+def mix_rbf_mmd2_and_ratio(X, Y, sigma_list: Sequence[float] = SIGMA_LIST, biased: bool = True):
+    """(MMD² over the square root of its variance estimate, MMD², variance)."""
+    mmd2, var_est = _mmd2_and_variance(*_mix_rbf_kernel(X, Y, sigma_list), biased=biased)
+    return mmd2 / torch.sqrt(torch.clamp(var_est, min=MIN_VAR_EST)), mmd2, var_est
+
+
+def linear_mmd2(f_of_X: torch.Tensor, f_of_Y: torch.Tensor) -> torch.Tensor:
+    """Linear-time MMD with a linear kernel over consecutive pairs."""
+    delta = f_of_X - f_of_Y
+    return torch.mean(torch.sum(delta[:-1] * delta[1:], dim=1))
+
+
+def poly_mmd2(f_of_X, f_of_Y, d: int = 2, alpha: float = 1.0, c: float = 2.0) -> torch.Tensor:
+    """Linear-time MMD with the polynomial kernel ``(alpha·<x, y> + c)^d``."""
+    K_XX = alpha * torch.sum(f_of_X[:-1] * f_of_X[1:], dim=1) + c
+    K_YY = alpha * torch.sum(f_of_Y[:-1] * f_of_Y[1:], dim=1) + c
+    K_XY = alpha * torch.sum(f_of_X[:-1] * f_of_Y[1:], dim=1) + c
+    K_YX = alpha * torch.sum(f_of_Y[:-1] * f_of_X[1:], dim=1) + c
+    return torch.mean(K_XX**d) + torch.mean(K_YY**d) - torch.mean(K_XY**d) - torch.mean(K_YX**d)
+
+
 def soft_mmd(label_s, feat_s, label_t, feat_t, label_weight: float,
              sample_weights=None, num_class: int = 10) -> torch.Tensor:
     """Class-aware MMD: scaled one-hot labels concatenated onto the features."""
     fs = torch.cat([feat_s, one_hot_labels(label_s, num_class) * label_weight], 1)
     ft = torch.cat([feat_t, one_hot_labels(label_t, num_class) * label_weight], 1)
     return mix_rbf_mmd2(fs, ft, SIGMA_LIST, sample_weights=sample_weights)
+
+
+def hard_mmd(label_s, feat_s, label_t, feat_t) -> torch.Tensor:
+    """MMD over the batch positions whose source and target labels match."""
+    mask = (label_s == label_t).to(feat_s.dtype)
+    return mix_rbf_mmd2(feat_s, feat_t, SIGMA_LIST, mask=mask)
+
+
+def _class_overlap_masks(label_s, label_t, num_class: int = 10):
+    """Per-side {0, 1} masks that select, for each class c, the first
+    min(n_s(c), n_t(c)) samples of that class by batch position: the two
+    selections hold the same class multiset."""
+    onehot_s = Fn.one_hot(label_s.long(), num_class)
+    onehot_t = Fn.one_hot(label_t.long(), num_class)
+    quota = torch.minimum(torch.sum(onehot_s, dim=0), torch.sum(onehot_t, dim=0))
+
+    def side_mask(onehot, labels):
+        rank = torch.sum((torch.cumsum(onehot, dim=0) - onehot) * onehot, dim=1)  # within the class
+        return (rank < quota[labels.long()]).to(torch.float32)
+
+    return side_mask(onehot_s, label_s), side_mask(onehot_t, label_t)
+
+
+def max_hard_mmd(label_s, feat_s, label_t, feat_t, num_class: int = 10) -> torch.Tensor:
+    """MMD between the greatest class-matched subsets of the two batches
+    (``_class_overlap_masks``), normalised by their common size."""
+    mask_s, mask_t = (m.to(feat_s.dtype) for m in _class_overlap_masks(label_s, label_t, num_class))
+    K_XX, K_XY, K_YY = _mix_rbf_kernel(feat_s, feat_t, SIGMA_LIST)
+    m = torch.clamp(torch.sum(mask_s), min=1.0)
+    diag_X = torch.diagonal(K_XX) * mask_s
+    diag_Y = torch.diagonal(K_YY) * mask_t
+    Kt_XX_sum = mask_s @ K_XX @ mask_s - torch.sum(diag_X)
+    Kt_YY_sum = mask_t @ K_YY @ mask_t - torch.sum(diag_Y)
+    K_XY_sum = mask_s @ K_XY @ mask_t
+    return ((Kt_XX_sum + torch.sum(diag_X)) / (m * m) + (Kt_YY_sum + torch.sum(diag_Y)) / (m * m)
+            - 2.0 * K_XY_sum / (m * m))
+
+
+def contrastive_loss_weighted(label_s, feat_s, label_t, feat_t, margin: float = 0.2,
+                              sample_weights=None) -> torch.Tensor:
+    """Cosine-embedding contrastive alignment of paired rows: ``1 − cos``
+    where the labels match, ``max(0, cos − margin)`` where they do not."""
+    cos = torch.sum(feat_s * feat_t, dim=1) / (
+        torch.linalg.vector_norm(feat_s, dim=1) * torch.linalg.vector_norm(feat_t, dim=1) + 1e-8)
+    loss = torch.where(label_s == label_t, 1.0 - cos, torch.clamp(cos - margin, min=0.0))
+    if sample_weights is not None:
+        loss = sample_weights.reshape(-1) * loss
+    return torch.mean(loss)
 
 
 def distance2weights(distances: torch.Tensor, method: str = "naive_inverse") -> torch.Tensor:
@@ -166,16 +282,21 @@ def mmd_cal(label_s, feat_s, label_t, feat_t, cfg: dict, data_s=None, data_t=Non
             num_class: int = 10) -> torch.Tensor:
     """MMD dispatch on ``cfg["NAME"]``: ``SOFT_MMD`` (with SDA weights from
     ``data_s``/``data_t``: raw clouds for GEO_WEIGHTS, logits for
-    SEM_WEIGHTS) or ``OFF`` (plain MMD)."""
+    SEM_WEIGHTS), ``HARD_MMD``, ``MAX_HARD_MMD`` or ``OFF`` (plain MMD);
+    another name raises ``ValueError``. Only SOFT_MMD reads the weights, so
+    the others do not compute them."""
     name = cfg["NAME"]
-    if name not in PORTED_MMD:
-        raise NotImplementedError(
-            f"MMD {name!r} is not ported yet (ported: {PORTED_MMD}); it is queued in ROADMAP.md"
-        )
-    sample_weights = None
-    if data_s is not None and (cfg.get("GEO_WEIGHTS") or cfg.get("SEM_WEIGHTS")):
-        sample_weights = cal_sample_weights(data_s, data_t, cfg, label_s=label_s, label_t=label_t)
     if name == "SOFT_MMD":
+        sample_weights = None
+        if data_s is not None and (cfg.get("GEO_WEIGHTS") or cfg.get("SEM_WEIGHTS")):
+            sample_weights = cal_sample_weights(data_s, data_t, cfg, label_s=label_s,
+                                                label_t=label_t)
         return soft_mmd(label_s, feat_s, label_t, feat_t, float(cfg["LABEL_SCALE"]),
                         sample_weights=sample_weights, num_class=num_class)
-    return mix_rbf_mmd2(feat_s, feat_t, SIGMA_LIST)
+    if name == "HARD_MMD":
+        return hard_mmd(label_s, feat_s, label_t, feat_t)
+    if name == "MAX_HARD_MMD":
+        return max_hard_mmd(label_s, feat_s, label_t, feat_t, num_class)
+    if name == "OFF":
+        return mix_rbf_mmd2(feat_s, feat_t, SIGMA_LIST)
+    raise ValueError(f"Not supported MMD method {name}")

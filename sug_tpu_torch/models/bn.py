@@ -1,7 +1,9 @@
-"""BatchNorm with flax semantics: counterpart of ``sug_tpu/models/bn.py``.
+"""BatchNorm with flax semantics and its grouped per-replica form:
+counterpart of ``sug_tpu/models/bn.py``.
 
 Channels-last (normalises the last axis of any rank), eps 1e-5, momentum
-0.9, and the arithmetic of ``flax.linen.BatchNorm``, written out:
+0.9. With one group (the default, globally exact statistics) the arithmetic
+is that of ``flax.linen.BatchNorm``, written out:
 
 - train mode: the batch mean over every axis but the last, and the biased
   variance ``max(mean(x²) − mean², 0)`` (flax's ``use_fast_variance``);
@@ -9,21 +11,39 @@ Channels-last (normalises the last axis of any rank), eps 1e-5, momentum
   biased, without gradient;
 - both modes: ``(x − mean) * (rsqrt(var + eps) * scale) + bias``.
 
+With ``groups`` g > 1 it is the JAX package's own grouped ``BatchNorm``
+(``bn.py:137-211``): the batch splits into g contiguous groups, each
+normalised by its own mean and variance ``mean(x²) − mean²`` (no clamp). The
+JAX class computes ``y = (x − mean) * rsqrt(var + eps)`` then ``y * scale +
+bias``; here the scale is folded into each group's slope, ``(x − mean) *
+(rsqrt(var + eps) * scale) + bias`` as with one group, which rounds
+differently by about an ulp and keeps one full-size tensor for the backward
+instead of two. Eval mode is the one-group formula on the running stats, as
+in the JAX class up to the same rounding. The running stats take
+one momentum update with the across-group mean (``momentum_mode="mean"``,
+the per-replica emulation of ``MODEL_CFG.BN_SEMANTICS: per_replica``) or
+one per group in group order (``"sequential"``: the stacked both-domains
+forward, whose two groups are the source and the target half).
+
+The JAX package keeps the group count in process-global state that flax
+reads while tracing; here it lives on the modules (``GroupedNorm.groups``),
+set by ``set_bn_groups`` and, for the stacked forward, ``stacked_bn``.
 ``torch.nn.functional.batch_norm`` is not used: its Welford variance rounds
-differently, and its running variance takes the unbiased estimate. The
-grouped per-replica and the stacked two-group modes come with later slices
-(ROADMAP.md).
+differently, and its running variance takes the unbiased estimate.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+import contextlib
+import os
+from typing import Iterator, Tuple
 
 import torch
 from torch import nn
 
 EPS = 1e-5
 MOMENTUM = 0.9
+MOMENTUM_MODES = ("mean", "sequential")
 
 
 def batch_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -42,7 +62,34 @@ def update_running(running_mean: torch.Tensor, running_var: torch.Tensor,
     running_var.copy_(MOMENTUM * running_var + (1.0 - MOMENTUM) * var)
 
 
-class BatchNorm(nn.Module):
+@torch.no_grad()
+def update_running_grouped(running_mean: torch.Tensor, running_var: torch.Tensor,
+                           mean: torch.Tensor, var: torch.Tensor, momentum_mode: str) -> None:
+    """The running stats from per-group (g, C) statistics: one update per
+    group in order (``"sequential"``) or one with their mean (``"mean"``)."""
+    if momentum_mode == "sequential":
+        for i in range(mean.shape[0]):
+            update_running(running_mean, running_var, mean[i], var[i])
+    else:
+        update_running(running_mean, running_var, torch.mean(mean, dim=0), torch.mean(var, dim=0))
+
+
+def check_groups(batch: int, groups: int) -> None:
+    if batch % groups != 0:
+        raise ValueError(f"batch {batch} not divisible by {groups} BN replica groups")
+
+
+class GroupedNorm(nn.Module):
+    """A module with BN statistics over ``groups`` contiguous batch groups:
+    ``BatchNorm``, and the EdgeConv block, whose BN reads the kernel's sums."""
+
+    def __init__(self):
+        super().__init__()
+        self.groups = 1
+        self.momentum_mode = "mean"
+
+
+class BatchNorm(GroupedNorm):
     """``weight``/``bias`` are flax's ``scale``/``bias``; ``running_mean``/
     ``running_var`` its ``batch_stats`` ``mean``/``var``."""
 
@@ -55,6 +102,8 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and self.groups > 1:
+            return self._grouped(x)
         if self.training:
             mean, var = batch_stats(x)
             update_running(self.running_mean, self.running_var, mean, var)
@@ -62,3 +111,70 @@ class BatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
         return (x - mean) * mul + self.bias
+
+    def _grouped(self, x: torch.Tensor) -> torch.Tensor:
+        g, B = self.groups, x.shape[0]
+        check_groups(B, g)
+        xg = x.reshape((g, B // g) + tuple(x.shape[1:]))
+        axes = tuple(range(1, xg.dim() - 1))  # all but the group and the channel
+        mean = torch.mean(xg, dim=axes)  # (g, C)
+        var = torch.mean(xg * xg, dim=axes) - mean * mean
+        update_running_grouped(self.running_mean, self.running_var, mean, var, self.momentum_mode)
+        shape = (g,) + (1,) * (xg.dim() - 2) + (x.shape[-1],)
+        mul = torch.rsqrt(var + self.eps) * self.weight  # each group's slopes
+        return ((xg - mean.reshape(shape)) * mul.reshape(shape) + self.bias).reshape(x.shape)
+
+
+def set_bn_groups(module: nn.Module, groups: int, momentum_mode: str = "mean") -> None:
+    """Every BN of ``module`` normalises over ``groups`` batch groups."""
+    if groups < 1:
+        raise ValueError(f"BN groups must be >= 1, got {groups}")
+    if momentum_mode not in MOMENTUM_MODES:
+        raise ValueError(f"momentum_mode must be one of {MOMENTUM_MODES}, got {momentum_mode!r}")
+    for m in module.modules():
+        if isinstance(m, GroupedNorm):
+            m.groups, m.momentum_mode = int(groups), momentum_mode
+
+
+@contextlib.contextmanager
+def stacked_bn(module: nn.Module) -> Iterator[None]:
+    """The stacked-forward regime over ``module``'s BNs: 2 groups (the
+    source half, then the target half) with sequential momentum, restored
+    on exit. Per-replica groups and the stacked halves would collide, so a
+    module whose BNs already have groups raises ``ValueError``."""
+    norms = [m for m in module.modules() if isinstance(m, GroupedNorm)]
+    if any(m.groups != 1 for m in norms):
+        raise ValueError("stacked forward + per-replica BN groups are mutually exclusive "
+                         "(grouped-BN group axes would collide)")
+    saved = [m.momentum_mode for m in norms]
+    try:
+        set_bn_groups(module, 2, "sequential")
+        yield
+    finally:
+        for m, mode in zip(norms, saved):
+            m.groups, m.momentum_mode = 1, mode
+
+
+def configure_from_cfg(cfg, devices: int = 1) -> int:
+    """The BN group count of ``MODEL_CFG.BN_SEMANTICS``, as the JAX
+    package's ``configure_from_cfg`` returns it: without BN_SEMANTICS,
+    ``SUG_BN_GROUPS`` when above 1, else 1; ``global``: 1; ``per_replica``:
+    ``MODEL_CFG.BN_GROUPS``, or ``devices``. An unknown semantics or a
+    MODEL_CFG that is not a mapping raises ``ValueError``."""
+    model_cfg = cfg.get("MODEL_CFG", None) if cfg is not None else None
+    if model_cfg is not None and not hasattr(model_cfg, "get"):
+        raise ValueError(f"MODEL_CFG is not a mapping: {model_cfg!r}")
+    sem = model_cfg.get("BN_SEMANTICS", None) if model_cfg is not None else None
+    if sem is None:
+        env = os.environ.get("SUG_BN_GROUPS", "")
+        return int(env) if env.isdigit() and int(env) > 1 else 1
+    sem = str(sem).lower()
+    if sem == "global":
+        return 1
+    if sem != "per_replica":
+        raise ValueError(f"unknown BN_SEMANTICS {sem!r}")
+    groups = model_cfg.get("BN_GROUPS", None)
+    groups = int(groups) if groups else max(devices, 1)
+    if groups < 1:
+        raise ValueError(f"BN groups must be >= 1, got {groups}")
+    return groups

@@ -10,7 +10,9 @@ since BN's per-channel affine and leaky_relu are monotone, the block output
 and ``lrelu(BN(amin))`` where it is negative. In train mode the BN batch
 statistics come from the kernel's sums over the ``M = B·N·k`` edges, so the
 gradients reach every edge through the kernel's ds1/ds2 cotangents, and the
-max/min branch through damax/damin.
+max/min branch through damax/damin. With BN groups (``GroupedNorm``) the
+statistics are taken per contiguous batch group from the same sums, as the
+JAX block does (``dgcnn.py:92-141``).
 """
 
 from __future__ import annotations
@@ -22,13 +24,14 @@ import torch.nn.functional as Fn
 from torch import nn
 
 from sug_tpu_torch.models.adapt_node import SelfAdaptiveNodeModule
-from sug_tpu_torch.models.bn import EPS, BatchNorm, update_running
+from sug_tpu_torch.models.bn import (EPS, BatchNorm, GroupedNorm, check_groups,
+                                     update_running, update_running_grouped)
 from sug_tpu_torch.ops.edgeconv import fused_edgeconv_reduce
 
 K_NEIGHBORS = 20
 
 
-class EdgeConvBlock(nn.Module):
+class EdgeConvBlock(GroupedNorm):
     """One EdgeConv block, the counterpart of ``_EdgeConvBlock``: kNN-20
     graph -> Dense + BN + leaky_relu(0.01) -> max over the neighbours."""
 
@@ -48,17 +51,35 @@ class EdgeConvBlock(nn.Module):
         v = torch.matmul(x, (w2 - w1).t())
         amax, amin, s1, s2, _ = fused_edgeconv_reduce(x, u, v, K_NEIGHBORS)
 
-        if self.training:
-            m = B * N * K_NEIGHBORS  # every edge, not every point
-            mean = torch.sum(s1, dim=(0, 1)) / m
-            var = torch.clamp(torch.sum(s2, dim=(0, 1)) / m - mean * mean, min=0.0)
-            update_running(self.bn_mean, self.bn_var, mean, var)
+        if self.training and self.groups > 1:
+            inv, off = self._group_slopes(s1, s2)
         else:
-            mean, var = self.bn_mean, self.bn_var
-        inv = self.bn_scale * torch.rsqrt(var + EPS)  # signed slopes
-        off = self.bn_bias - mean * inv
+            if self.training:
+                m = B * N * K_NEIGHBORS  # every edge, not every point
+                mean = torch.sum(s1, dim=(0, 1)) / m
+                var = torch.clamp(torch.sum(s2, dim=(0, 1)) / m - mean * mean, min=0.0)
+                update_running(self.bn_mean, self.bn_var, mean, var)
+            else:
+                mean, var = self.bn_mean, self.bn_var
+            inv = self.bn_scale * torch.rsqrt(var + EPS)  # signed slopes
+            off = self.bn_bias - mean * inv
         sel = torch.where(inv >= 0, amax, amin)
         return Fn.leaky_relu(sel * inv + off, negative_slope=0.01)
+
+    def _group_slopes(self, s1: torch.Tensor, s2: torch.Tensor):
+        """Train mode with BN groups: each contiguous batch group's slopes and
+        offsets from its own edges' sums, on its rows, (B, 1, F) each."""
+        B, N, F = s1.shape
+        g = self.groups
+        check_groups(B, g)
+        m = (B // g) * N * K_NEIGHBORS  # every edge of a group, not every point
+        mean = torch.sum(s1.reshape(g, -1, F), dim=1) / m  # (g, F)
+        var = torch.clamp(torch.sum(s2.reshape(g, -1, F), dim=1) / m - mean * mean, min=0.0)
+        update_running_grouped(self.bn_mean, self.bn_var, mean, var, self.momentum_mode)
+        inv = self.bn_scale * torch.rsqrt(var + EPS)  # (g, F) signed slopes
+        off = self.bn_bias - mean * inv
+        return tuple(t[:, None, None, :].expand(g, B // g, 1, F).reshape(B, 1, F)
+                     for t in (inv, off))
 
 
 class DGCNNGenerator(nn.Module):

@@ -99,6 +99,23 @@ class TransformNet(nn.Module):
         return x.reshape(-1, self.K, self.K) + torch.eye(self.K, dtype=x.dtype, device=x.device)
 
 
+class _GradReverse(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lambd):
+        ctx.lambd = lambd
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return -ctx.lambd * g, None
+
+
+def grad_reverse(x: torch.Tensor, lambd: float) -> torch.Tensor:
+    """The working gradient-reversal layer: the identity forward, ``−λ·g``
+    backward, no gradient for λ (a float)."""
+    return _GradReverse.apply(x, float(lambd))
+
+
 class CALayer(nn.Module):
     """Squeeze-excite channel attention over flattened node features (B, D):
     Dense down/up (reduction 8) + sigmoid gate, ``x*y + x``, then BatchNorm

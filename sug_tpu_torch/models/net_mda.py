@@ -1,9 +1,8 @@
 """NetMDA, the twin-head DG model: counterpart of
 ``sug_tpu/models/net_mda.py`` for ``model_name`` "DGCNN", "PTran" and
-"Pointnet", sequential forward only, in eval and train mode.
-
-The stacked both-domains forward, the gradient-reversal layer and the other
-backbones come with later slices (ROADMAP.md, "Modules to port").
+"Pointnet", in eval and train mode: the per-domain forward, the stacked
+both-domains forward (``domain="stacked"``) and the gradient-reversal layer.
+The other backbones come with later slices (ROADMAP.md, "Modules to port").
 """
 
 from __future__ import annotations
@@ -15,7 +14,8 @@ from torch import nn
 
 from sug_tpu_torch.models.dgcnn import DGCNNGenerator
 from sug_tpu_torch.models.heads import ClassifierHead
-from sug_tpu_torch.models.layers import CALayer, flax_init_
+from sug_tpu_torch.models.bn import stacked_bn
+from sug_tpu_torch.models.layers import CALayer, flax_init_, grad_reverse
 from sug_tpu_torch.models.pointnet import PointNetGenerator
 from sug_tpu_torch.models.ptran import PointTransformerGenerator
 
@@ -34,6 +34,18 @@ class NetMDA(nn.Module):
     node_flat (B, 64*64), flattened node-major; node_offset (None for
     PTran); and node_attn (domain 'source' or 'target') or node_attn and
     node_attn_t (domain 'both').
+
+    ``domain="stacked"`` takes ``concat(source, target)`` (2B clouds) and
+    runs the generator once over it, its BNs in the 2-group sequential
+    regime (``bn.stacked_bn``), so each half is normalised by its own
+    statistics and the running stats are updated source then target, as two
+    per-domain forwards would. ``attention_s`` takes the source half and
+    ``attention_t`` the target half (node_attn, node_attn_t, B rows each);
+    the heads run once over the 2B rows. Every other output has 2B rows.
+
+    ``grl_constant`` λ (None: off) reverses the gradient of the global
+    feature before the heads, ``−λ·g``; in the stacked forward only the
+    target half's, as the reference applies it to the target forward.
 
     ``num_points`` sizes PTran's ``point_mix`` (flax sizes it at the first
     call); DGCNN and Pointnet take any cloud size. ``fps_start`` (B,) starts
@@ -69,14 +81,12 @@ class NetMDA(nn.Module):
         domain: Optional[str] = None,
         fps_start: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        grl_constant: Optional[float] = None,
     ) -> Dict[str, torch.Tensor]:
         if domain == "stacked":
-            raise NotImplementedError(
-                "NetMDA domain 'stacked' (the stacked both-domains forward) is not "
-                "ported yet; it is queued in ROADMAP.md"
-            )
+            return self._stacked(pc, fps_start, generator, grl_constant)
         if domain not in DOMAINS:
-            raise ValueError(f"domain must be one of {DOMAINS}, got {domain!r}")
+            raise ValueError(f"domain must be one of {DOMAINS + ('stacked',)}, got {domain!r}")
         feat, node_fea, node_off = self.g(pc, fps_start)
         node_flat = node_fea.reshape(feat.shape[0], -1)
 
@@ -85,7 +95,25 @@ class NetMDA(nn.Module):
             out["node_attn"] = self.attention_s(node_flat)
         if domain in ("target", "both"):
             out["node_attn_t" if domain == "both" else "node_attn"] = self.attention_t(node_flat)
+        if grl_constant is not None:
+            feat = grad_reverse(feat, grl_constant)
+        return self._heads(feat, out, generator)
 
+    def _stacked(self, pc, fps_start, generator, grl_constant) -> Dict[str, torch.Tensor]:
+        with stacked_bn(self.g):
+            feat, node_fea, node_off = self.g(pc, fps_start)
+        B = feat.shape[0] // 2
+        node_flat = node_fea.reshape(2 * B, -1)
+        out: Dict[str, torch.Tensor] = {
+            "node_flat": node_flat, "node_offset": node_off,
+            "node_attn": self.attention_s(node_flat[:B]),
+            "node_attn_t": self.attention_t(node_flat[B:]),
+        }
+        if grl_constant is not None:
+            feat = torch.cat([feat[:B], grad_reverse(feat[B:], grl_constant)])
+        return self._heads(feat, out, generator)
+
+    def _heads(self, feat, out, generator) -> Dict[str, torch.Tensor]:
         logits1, sem1 = self.c1(feat, generator)
         logits2, sem2 = self.c2(feat, generator)
         out.update(logits1=logits1, logits2=logits2, sem1=sem1, sem2=sem2, global_feat=feat)

@@ -232,16 +232,23 @@ def test_three_train_steps(setup, monkeypatch):
     assert int(state.step) == 3 and tr.optimizer.state["g"]["count"] == 3
 
 
-def test_unported_config_raises(setup):
+def test_unported_config_raises(setup, monkeypatch):
+    """bf16 and the other backbones raise; GRL, the stacked forward,
+    per-replica BN and every alignment the JAX trainer takes are accepted;
+    an unknown alignment raises ``ValueError``, as it does in JAX."""
     cfg = setup[0]
-    for key, value, what in (("GRL", True, "GRL"),):
-        bad = {**cfg, "METHODS": {**cfg["METHODS"], key: value}}
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-            tdt.DGTrainer(bad, model_name="DGCNN", device="cpu")
-    bad = {**cfg, "METHODS": {**cfg["METHODS"], "GEO_MMD": [{"NAME": "CL"}]}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdt.DGTrainer(bad, model_name="DGCNN", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdt.DGTrainer({**cfg, "PRECISION": "bf16"}, model_name="DGCNN", device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tdt.DGTrainer(cfg, model_name="Pointnet2", device="cpu")
+    monkeypatch.setenv("SUG_STACKED_FORWARD", "1")
+    methods = cfg["METHODS"]
+    for name in ("CL", "HARD_MMD", "MAX_HARD_MMD"):
+        ok = {**cfg, "METHODS": {**methods, "GRL": True, "GEO_MMD": [{"NAME": name}],
+                                 "SEM_MMD": [{"NAME": name}]},
+              "MODEL_CFG": {"BN_SEMANTICS": "per_replica", "BN_GROUPS": 2}}
+        tr = tdt.DGTrainer(ok, model_name="DGCNN", device="cpu")
+        assert tr.grl and tr.bn_groups == 2
+    bad = {**cfg, "METHODS": {**methods, "SEM_MMD": [{"NAME": "SOFTER_MMD"}]}}
+    with pytest.raises(ValueError, match="Not supported MMD method SOFTER_MMD"):
+        tdt.DGTrainer(bad, model_name="DGCNN", device="cpu")

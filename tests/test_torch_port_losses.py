@@ -1,7 +1,10 @@
 """The port's losses (sug_tpu_torch/losses/{classification,mmd}.py and
-``geometry.chamfer_distance``) against sug_tpu.losses on the CPU: values,
-and gradients with respect to the features (logits for the classification
-losses, the features for the MMDs).
+``geometry.chamfer_distance``) and its gradient-reversal layer against
+sug_tpu on the CPU: values, and gradients with respect to the features
+(logits for the classification losses, the features for the MMDs). The
+class-conditioned alignments (hard, max-hard, contrastive) run on labels
+with no match, all matches and a mix; one DG ``_loss`` runs with the
+contrastive geo and the hard sem alignment.
 
 Tolerance 1e-5 relative + 1e-6 absolute on values and 1e-4 relative + 1e-6
 absolute on gradients: both sides compute in f32 and differ only in the
@@ -15,6 +18,8 @@ The class weights are host-side numpy in both packages and must agree to
 """
 
 from __future__ import annotations
+
+import functools
 
 import jax
 import jax.numpy as jnp
@@ -212,7 +217,177 @@ def test_mix_rbf_mmd2_with_weights_and_mask(biased):
 
 
 def test_unported_mmd_raises():
+    """An unknown name raises ``ValueError``, as in the JAX package; so does
+    CL, which the trainer dispatches and ``mmd_cal`` does not."""
     _, _, fs, ft, ls, lt = _clouds_and_feats(13)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tm.mmd_cal(torch.from_numpy(ls), torch.from_numpy(fs), torch.from_numpy(lt),
-                   torch.from_numpy(ft), {"NAME": "HARD_MMD"})
+    for name in ("NOT_AN_MMD", "CL"):
+        with pytest.raises(ValueError, match=f"Not supported MMD method {name}"):
+            jm.mmd_cal(jnp.asarray(ls), jnp.asarray(fs), jnp.asarray(lt), jnp.asarray(ft),
+                       {"NAME": name})
+        with pytest.raises(ValueError, match=f"Not supported MMD method {name}"):
+            tm.mmd_cal(torch.from_numpy(ls), torch.from_numpy(fs), torch.from_numpy(lt),
+                       torch.from_numpy(ft), {"NAME": name})
+
+
+def _labels(case, seed):
+    """Source and target labels with no match, every position matching, or a
+    mix (classes repeat, so the max-hard quotas are not all one)."""
+    rng = np.random.default_rng(seed)
+    ls = rng.integers(0, 4, size=B).astype(np.int32)
+    if case == "none":
+        return ls, ((ls + 1 + rng.integers(0, 3, size=B)) % 4 + 4).astype(np.int32)
+    if case == "all":
+        return ls, ls.copy()
+    lt = ls.copy()
+    lt[::2] = rng.integers(0, 4, size=B // 2)
+    assert (lt == ls).any() and (lt != ls).any()
+    return ls, lt
+
+
+LABEL_CASES = ["none", "all", "mix"]
+
+
+@pytest.mark.parametrize("case", LABEL_CASES)
+def test_class_overlap_masks(case):
+    ls, lt = _labels(case, 20)
+    want = [np.asarray(m) for m in jm._class_overlap_masks(jnp.asarray(ls), jnp.asarray(lt))]
+    got = [m.numpy() for m in tm._class_overlap_masks(torch.from_numpy(ls), torch.from_numpy(lt))]
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert got[0].sum() == got[1].sum()
+
+
+@pytest.mark.parametrize("case", LABEL_CASES)
+@pytest.mark.parametrize("fn", ["hard_mmd", "max_hard_mmd", "contrastive_loss_weighted"])
+def test_class_conditioned_alignments(fn, case):
+    _, _, fs, ft, _, _ = _clouds_and_feats(21, d=64)
+    ls, lt = _labels(case, 22)
+    got, want = _value_and_grad_both(
+        lambda x, y, a, b: getattr(jm, fn)(a, x, b, y),
+        lambda x, y, a, b: getattr(tm, fn)(a, x, b, y),
+        fs, ft, ls, lt,
+    )
+    if fn == "hard_mmd" and case == "none":
+        assert want[0] == 0.0 and got[0] == 0.0
+    _assert_both(got, want, MMD_GRAD)
+
+
+def test_contrastive_loss_with_sample_weights():
+    _, _, fs, ft, _, _ = _clouds_and_feats(23, d=64)
+    ls, lt = _labels("mix", 24)
+    w = np.random.default_rng(25).uniform(0.5, 1.5, size=B).astype(np.float32)
+    got, want = _value_and_grad_both(
+        lambda x, y, a, b, w_: jm.contrastive_loss_weighted(a, x, b, y, sample_weights=w_),
+        lambda x, y, a, b, w_: tm.contrastive_loss_weighted(a, x, b, y, sample_weights=w_),
+        fs, ft, ls, lt, w,
+    )
+    _assert_both(got, want)
+
+
+@pytest.mark.parametrize("biased", [True, False], ids=["biased", "unbiased"])
+def test_mix_rbf_mmd2_and_ratio(biased):
+    """The variance-normalised MMD and its two parts, in float64 on both
+    sides (JAX under ``jax.enable_x64``), to 1e-9 relative. The variance
+    estimate is a difference of terms some 1e3 times larger than it: in f32
+    each package lands within 1e-4 to 2e-2 of the float64 value, on its own
+    side of it, so f32 against f32 would test the rounding, not the formula."""
+    rng = np.random.default_rng(26)
+    fs = rng.normal(size=(B, 64))
+    ft = rng.normal(size=(B, 64)) + 0.5
+    with jax.enable_x64(True):
+        want = [float(v) for v in jm.mix_rbf_mmd2_and_ratio(jnp.asarray(fs), jnp.asarray(ft),
+                                                            biased=biased)]
+        j_grad = np.asarray(jax.grad(lambda x: jm.mix_rbf_mmd2_and_ratio(
+            x, jnp.asarray(ft), biased=biased)[0])(jnp.asarray(fs)))
+    x = torch.from_numpy(fs).requires_grad_()
+    got = tm.mix_rbf_mmd2_and_ratio(x, torch.from_numpy(ft), biased=biased)
+    (t_grad,) = torch.autograd.grad(got[0], x)
+    assert want[2] > jm.MIN_VAR_EST  # the variance, not its floor
+    np.testing.assert_allclose([float(v) for v in got], want, rtol=1e-9)
+    np.testing.assert_allclose(t_grad.numpy(), j_grad, rtol=1e-9, atol=1e-9 * np.abs(j_grad).max())
+
+
+@pytest.mark.parametrize("fn", ["linear_mmd2", "poly_mmd2"])
+def test_linear_time_mmds(fn):
+    _, _, fs, ft, *_ = _clouds_and_feats(27, d=32)
+    fs, ft = 10.0 * fs, 10.0 * ft + 0.5
+    got, want = _value_and_grad_both(getattr(jm, fn), getattr(tm, fn), fs, ft)
+    _assert_both(got, want)
+
+
+def test_grad_reverse():
+    from sug_tpu.models.layers import grad_reverse as j_grl
+    from sug_tpu_torch.models.layers import grad_reverse as t_grl
+
+    rng = np.random.default_rng(28)
+    x = rng.normal(size=(B, 16)).astype(np.float32)
+    cot = rng.normal(size=(B, 16)).astype(np.float32)
+    lambd = np.float32(0.7)
+    (j_out, (j_gx, j_gl)) = (
+        np.asarray(j_grl(jnp.asarray(x), lambd)),
+        jax.grad(lambda x_, l_: jnp.sum(j_grl(x_, l_) * cot), argnums=(0, 1))(jnp.asarray(x),
+                                                                            jnp.asarray(lambd)),
+    )
+    tx = torch.from_numpy(x).requires_grad_()
+    out = t_grl(tx, 0.7)
+    (t_gx,) = torch.autograd.grad(torch.sum(out * torch.from_numpy(cot)), tx)
+    np.testing.assert_array_equal(out.detach().numpy(), j_out)
+    np.testing.assert_array_equal(t_gx.numpy(), np.asarray(j_gx))
+    assert float(j_gl) == 0.0  # no gradient for λ, on either side
+    np.testing.assert_array_equal(t_gx.numpy(), -lambd * cot)
+
+
+HARD_CFGS = {
+    "hard-geo": {"NAME": "HARD_MMD", "LABEL_SCALE": 50, "GEO_WEIGHTS": "mean2one", "GEO_SCALE": 1},
+    "hard-sem": {"NAME": "HARD_MMD", "SEM_WEIGHTS": "mean2one", "LABEL_WEIGHT": 0.5},
+    "max-hard-geo": {"NAME": "MAX_HARD_MMD", "GEO_WEIGHTS": "mean2one"},
+    "max-hard": {"NAME": "MAX_HARD_MMD"},
+}
+
+
+@pytest.mark.parametrize("name", list(HARD_CFGS))
+def test_mmd_cal_hard(name):
+    """``mmd_cal`` dispatches the hard MMDs (which read no SDA weights)."""
+    cfg = HARD_CFGS[name]
+    pc_s, pc_t, fs, ft, _, _ = _clouds_and_feats(29, d=256)
+    ls, lt = _labels("mix", 30)
+    data_s, data_t = (_logits(31)[0], _logits(32)[0]) if "sem" in name else (pc_s, pc_t)
+    got, want = _value_and_grad_both(
+        lambda x, y, a, b, d1, d2: jm.mmd_cal(a, x, b, y, cfg, data_s=d1, data_t=d2),
+        lambda x, y, a, b, d1, d2: tm.mmd_cal(a, x, b, y, cfg, data_s=d1, data_t=d2),
+        fs, ft, ls, lt, data_s, data_t,
+    )
+    assert want[0] != 0.0
+    _assert_both(got, want, MMD_GRAD)
+
+
+def test_dg_loss_with_cl_geo_and_hard_sem(monkeypatch):
+    """One DGCNN ``_loss(train=False)`` of the trainer with ``GEO_MMD: CL``
+    and ``SEM_MMD: HARD_MMD``, the weights bridged from the JAX init: every
+    loss, port against JAX, to 1e-4 relative (as the DG step tests)."""
+    import bench
+    from sug_tpu.engine import dg_trainer as jdt
+    from sug_tpu_torch.engine import dg_trainer as tdt
+    from sug_tpu_torch.utils.jax_bridge import load_jax_variables
+    from tests.test_torch_port_stacked import _clouds, _variables
+
+    monkeypatch.delenv("SUG_STACKED_FORWARD", raising=False)
+    cfg = dict(bench._make_cfg())
+    cfg["METHODS"] = {**cfg["METHODS"], "GEO_MMD": [{"NAME": "CL", "GEO_SCALE": 1}],
+                      "SEM_MMD": [{"NAME": "HARD_MMD", "SEM_SCALE": 1}]}
+    variables = _variables("DGCNN")
+    jtr = jdt.DGTrainer(cfg, model_name="DGCNN", augment=False)
+    tr = tdt.DGTrainer(cfg, model_name="DGCNN", augment=False, device="cpu")
+    load_jax_variables(tr.model, variables)
+    ds, dt = _clouds(3)
+    ls, lt = _labels("mix", 33)[0][:4], _labels("mix", 33)[1][:4]
+    _, (_, want) = jax.jit(functools.partial(jtr._loss, mmd_on=True, train=False))(
+        variables["params"], variables["batch_stats"], jnp.asarray(ds), jnp.asarray(ls),
+        jnp.asarray(dt), jnp.asarray(lt), jax.random.key(0), jnp.float32(0.0))
+    with torch.no_grad():
+        _, got = tr._loss(torch.from_numpy(ds), torch.from_numpy(ls).long(), torch.from_numpy(dt),
+                          torch.from_numpy(lt).long(), train=False)
+    assert float(want["loss_geo"]) != 0.0 and float(want["loss_sem"]) != 0.0
+    for k in ("loss_cls", "loss_geo", "loss_sem", "loss_total"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-4, atol=1e-6,
+                                   err_msg=k)

@@ -134,8 +134,21 @@ def test_net_mda_init_is_flax_lecun_normal():
 
 
 def test_train_mode_raises():
-    """Train mode runs (tests/test_torch_port_train_modules.py); what it does
-    not have yet, the stacked both-domains forward, raises."""
+    """The stacked both-domains forward runs in train mode (its numerics are
+    in tests/test_torch_port_stacked.py): 2B clouds in, the attended node
+    features of each half, 2B rows of the rest, the BNs back at one group
+    after it. Stacked halves and per-replica BN groups together raise."""
+    from sug_tpu_torch.models.bn import GroupedNorm, set_bn_groups
+
     model = NetMDA("DGCNN").train()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.zeros(2, 32, 3), domain="stacked")
+    gen = torch.Generator().manual_seed(0)
+    out = model(torch.rand(4, 32, 3, generator=gen), domain="stacked", generator=gen)
+    assert out["node_attn"].shape == out["node_attn_t"].shape == (2, 64 * 64)
+    assert out["node_flat"].shape == (4, 64 * 64) and out["logits1"].shape == (4, 10)
+    norms = [m for m in model.modules() if isinstance(m, GroupedNorm)]
+    assert len(norms) > 4 and all(m.groups == 1 for m in norms)
+    set_bn_groups(model, 2)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        model(torch.zeros(4, 32, 3), domain="stacked", generator=gen)
+    with pytest.raises(ValueError, match="domain"):
+        model(torch.zeros(4, 32, 3), domain="stacked_both")

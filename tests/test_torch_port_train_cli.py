@@ -2,7 +2,10 @@
 the CPU: one epoch of DGCNN DG training with ``DG_unified_loss.yaml`` on a
 tiny synthetic PointDA tree (clouds of 128 points), then ``--resume`` from
 its checkpoint, which continues at the next epoch with the optimizer's step
-counts carried over. A model the port does not train raises. PTran's run
+counts carried over; two epochs with ``--set METHODS.GRL True`` on the
+stacked forward with the contrastive geo and max-hard sem alignments,
+checking the GRL's λ each step receives. A model the port does not train
+raises. PTran's run
 through the same door is in ``test_torch_port_ptran_train.py``, PointNet's
 (the shipped config as it stands) in ``test_torch_port_pointnet.py``."""
 
@@ -66,6 +69,34 @@ def test_train_one_epoch_then_resume(data_root):
                          recursive=True)
     assert torch.load(ckpt2, weights_only=True)["optimizer"]["dis"]["count"] == 4
     assert os.path.dirname(ckpt2) != os.path.dirname(ckpt)  # a second run's own folder
+
+
+def test_grl_lambda_per_epoch(data_root, tmp_path, monkeypatch):
+    """Every step of epoch e gets λ = sin((e + 1) / max_epoch · π/2)."""
+    from sug_tpu_torch.engine.dg_trainer import DGTrainer
+
+    cfg = tmp_path / "DG_grl_cl.yaml"
+    cfg.write_text(f"_BASE_CONFIG_: {os.path.abspath(YAML)}\n"
+                   "METHODS:\n"
+                   "    GEO_MMD: [{NAME: CL, GEO_SCALE: 1}]\n"
+                   "    SEM_MMD: [{NAME: MAX_HARD_MMD, SEM_SCALE: 1}]\n")
+    monkeypatch.setenv("SUG_STACKED_FORWARD", "1")
+    seen = []
+    step = DGTrainer.train_step
+
+    def recording_step(self, *args, **kwargs):
+        seen.append((self.grl, kwargs["grl_const"]))
+        return step(self, *args, **kwargs)
+
+    monkeypatch.setattr(DGTrainer, "train_step", recording_step)
+    argv = _argv(data_root, 2) + ["METHODS.GRL", "True"]
+    argv[argv.index(YAML)] = str(cfg)
+    res = train_dg_single_gpu.main(argv)
+    assert [h["steps"] for h in res["history"]] == [2, 2]
+    assert seen == [(True, math.sin(0.5 * math.pi / 2))] * 2 + [(True, 1.0)] * 2
+    for h in res["history"]:
+        for k in ("loss_cls", "loss_geo", "loss_sem"):
+            assert math.isfinite(h[k]), (h["epoch"], k)
 
 
 def test_other_models_raise(data_root):
