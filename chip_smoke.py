@@ -15,6 +15,8 @@ ends the run with a non-zero exit; the phases, in order:
    kernels whose D×D products run as 3xTF32 ``mma.sync`` (the
    vector-attention forward and the backward's edge and wgrad kernels),
    failing where there are none or where the toolkit has no ``cuobjdump``;
+   and the two instances (f32 and bf16 ``u``) of the EdgeConv gather, rows
+   and keys kernels, the bf16 ones for the ``values_bf16`` mode;
 3. kernels against their plain PyTorch versions on the card: the EdgeConv
    forward and backward at the shapes the DGCNN twin-head forward and
    backward give them at B=64, at ragged sizes (N=1000, S=61), on exact-tie
@@ -51,6 +53,11 @@ ends the run with a non-zero exit; the phases, in order:
    an out-of-range start in a child process, which must end in a CUDA
    error and print no indices; the EdgeConv forward and backward at the N=4096
    shapes (DGCNN blocks 1 and 4, the SA-node) and on a zero-padded cloud;
+   then the EdgeConv kernels in ``values_bf16`` mode (the bf16 policy's) at
+   the same cases (DGCNN's five shapes and the SA-node's at N=1024, ragged,
+   N=4096, zero-padded): gather, rows and keys bit for bit against their
+   plain versions in that mode, the select kernel's idx the f32 mode's, two
+   launches bit-identical, the whole against the plain version as above;
 4. the slices through their entry points, each with every launch count set
    to 0 just before it and read just after: ``sug_tpu_torch.infer``
    (``--model DGCNN --dg --batch_size 64``) on synthetic clouds and a
@@ -87,7 +94,15 @@ ends the run with a non-zero exit; the phases, in order:
    ``MODEL_CFG.BN_SEMANTICS per_replica`` and ``BN_GROUPS 2`` (launches as
    its sequential path); then the stacked DGCNN loss (GRL λ = 0.7, CL,
    max-hard) and the grouped one (2 BN groups) at B=8 on the card against
-   the CPU, held as above. Every path runs
+   the CPU, held as above; then the bf16 policy: ``train_dg_single_gpu --set
+   PRECISION bf16`` for DGCNN at 1024 points and PointNet at 4096 (one epoch
+   and ``--resume``), ``infer --dg`` under ``SUG_PRECISION=bf16`` for both
+   with logits of 16 clouds against the CPU, one bf16 ``_loss`` per model
+   (DGCNN at B=8, PointNet at 16) on the card against the CPU (on the card's
+   neighbours, maxima over the points and T-Net matrices, every norm's bias
+   raised: the comment at GATE_SHIFT), the
+   launches as ``MAIN_PATHS`` says, and PTran under bf16 refused by the
+   trainer and by ``infer``. Every path runs
    the FPS kernel (DGCNN's and PointNet's SA-node once a forward, PTran's
    four TransitionDowns); no path at 1024 points launches min-dists;
 5. times, with CUDA events after warm-up: each kernel shape beside its bound,
@@ -112,9 +127,15 @@ ends the run with a non-zero exit; the phases, in order:
    ``MAIN_PATHS`` says. The cells of ``AB_CELLS`` (DGCNN at 1024 and 4096
    points, PTran at 1024, PointNet at 4096) run the step with the
    sequential and the stacked forward in turns on one trainer, sequential,
-   stacked, stacked, sequential, and a summary lists each run.
+   stacked, stacked, sequential, and a summary lists each run; the cells of
+   ``BF16_CELLS`` (DGCNN and PointNet at 1024 and 4096 points) also run the
+   step under the bf16 policy, f32 and bf16 in turns on one trainer; the
+   DGCNN and PointNet forwards also under bf16; and the EdgeConv kernels in
+   ``values_bf16`` mode at the five N=1024 shapes, split by kernel, beside
+   their bounds (u read at 2 bytes) and plain versions.
 
-The line before the last is a JSON object with every kernel's numbers; the
+The line before the last is a JSON object with every kernel's numbers (the
+two EdgeConv kernels' ``values_bf16`` mode as entries of their own); the
 last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -195,6 +216,16 @@ MAX_GRAD_REL_L2 = 1e-2
 # float32 rounding of |q|² + |key|² − 2·q·key); at most 1 − MIN_SET_AGREEMENT
 # of the rows may differ.
 NEAR_TIE_REL = 1e-5
+# Under bf16 the two devices' features differ by more than float32's
+# rounding: where a sum lies near a bf16 rounding boundary the card and the
+# CPU round it to neighbouring bf16 values, a step of 2^-8 of the value,
+# which moves the next kNN's queries and keys (the SA-node's node
+# positions too, through its offsets). The yardstick is then the policy's
+# own: on the CPU's bf16 run's features, the rows on which its own bf16 and
+# f32 runs choose differently and the gap between those two choices. A row
+# the CPU chooses otherwise than the card is a near tie within the larger of
+# NEAR_TIE_REL and that gap, and there may be as many such rows as the
+# larger of the f32 share and that count.
 # Zero-padded clouds. The padded rows are copies of the origin, the mean of
 # a centred cloud, so a layer that maps the raw points linearly (PointNet's
 # conv1, its first T-Net's first layer) puts them at the mean of its
@@ -345,6 +376,45 @@ BN_GROUPS_SET = ("MODEL_CFG.BN_SEMANTICS", "per_replica", "MODEL_CFG.BN_GROUPS",
 GRL_LAMBDA = 0.7  # the card-vs-CPU loss's λ, well inside the loop's sine ramp
 # phase 5's A/B cells, sequential against stacked in turns in one process
 AB_CELLS = (("DGCNN", N_POINTS), ("PTran", N_POINTS), ("Pointnet", N_LARGE), ("DGCNN", N_LARGE))
+# The bf16 policy (PRECISION: bf16, DGCNN and PointNet): the EdgeConv
+# kernels' values_bf16 mode, instantiated in the same sources, as
+# (label, kernel name, source); the --set that turns it on; phase 5's cells
+# that run the f32 and the bf16 step in turns on one trainer.
+BF16_KERNELS = (("gather", "edgeconv_fwd_gather_kernel", "edgeconv_fwd"),
+                ("rows", "edgeconv_bwd_rows_kernel", "edgeconv_bwd"),
+                ("keys", "edgeconv_bwd_keys_kernel", "edgeconv_bwd"))
+BF16_SET = ("PRECISION", "bf16")
+BF16_CELLS = (("DGCNN", N_POINTS), ("DGCNN", N_LARGE), ("Pointnet", N_POINTS),
+              ("Pointnet", N_LARGE))
+# bf16 on the card against bf16 on the CPU. Both round at the same points,
+# but their f32 sums (cuBLAS against the CPU's GEMMs, BN reductions) differ
+# in order, and where a sum lies near a bf16 rounding boundary the two
+# round it to neighbouring bf16 values. That moves a max over the points, a
+# kNN or an activation's gate to another piece of a piecewise function on
+# near ties, and the gradient jumps with it: with those choices free,
+# PointNet's gradients at 4096 points differ by half their norm between
+# bf16 and f32 on the CPU alone, so no limit set by that noise could fail a
+# wrong gradient. So the bf16 loss compares the devices where the gradient
+# is a smooth function of the rounding: the CPU takes the card's EdgeConv
+# neighbours (``card_neighbours``, each row held to a near tie), the card's
+# choice of each max over the points (``card_maxima``) and the card's T-Net
+# matrices (``card_transforms``, each within the CPU's own bf16-vs-f32
+# distance of the CPU's: an ulp that the devices round apart in the T-Net's
+# bf16 products moves every point of the cloud, and the SA-node's kNN with
+# it), every BN's and LayerNorm's bias is raised by GATE_SHIFT (each
+# activation's input far from its kink), and the batch is the synthetic
+# clouds of 8 classes (PointNet's of 16, whose first T-Net's gradient 8
+# clouds leave to bf16's rounding). Each
+# figure is then held to the CPU's own bf16-vs-f32 distance D on the same
+# inputs and choices (the f32 run keeps its own neighbours), each gradient
+# leaf to its own, or to the f32 limit where that is larger; every D must
+# stay under MAX_BF16_NOISE, so that a zero or a halved result fails. A
+# leaf whose f32 gradient is zero to rounding (under ZERO_LEAF of the
+# largest leaf) must stay under 1e-2 of the largest on both devices. The
+# logits of ``infer`` are held to D alone, each device choosing its own.
+GATE_SHIFT = 3.0
+MAX_BF16_NOISE = 0.5
+ZERO_LEAF = 1e-4
 
 
 def hmma_count(cuobjdump, library, kernel):
@@ -359,6 +429,14 @@ def hmma_count(cuobjdump, library, kernel):
         elif inside and "HMMA" in line:
             count += 1
     return count
+
+
+def sass_functions(cuobjdump, library):
+    """The (mangled) names of the kernels in ``library``'s SASS."""
+    sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    return [line.split("Function :", 1)[1].strip() for line in sass.splitlines()
+            if "Function :" in line]
 
 
 def fail(msg: str) -> None:
@@ -407,13 +485,13 @@ def shape_inputs(shape, gen, device, n=N_POINTS, b=B, real=None):
 
 def bound(q, kv, u, v, k):
     """(bound_ms, bound_by): the larger of the bytes over HBM bandwidth (each
-    input read once, each output written once) and the f32 distance
-    operations 2*B*S*N*C over the f32 peak. The k selection rounds are
-    comparisons and are not counted."""
+    input read once at its own width, so a bf16 u at 2 bytes; each output
+    written once) and the f32 distance operations 2*B*S*N*C over the f32
+    peak. The k selection rounds are comparisons and are not counted."""
     Bq, S, C = q.shape
     N, F = kv.shape[1], u.shape[-1]
     inputs = [kv, u, v] + ([] if q is kv else [q])
-    nbytes = sum(t.numel() * 4 for t in inputs) + 4 * Bq * S * F * 4 + Bq * S * k * 4
+    nbytes = sum(t.numel() * t.element_size() for t in inputs) + 4 * Bq * S * F * 4 + Bq * S * k * 4
     flops = 2.0 * Bq * S * N * C
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
@@ -448,22 +526,26 @@ def compare(name, got, want, require_exact_idx=False):
 
 
 def bwd_bound(idx, u, v):
-    """(bound_ms, bound_by, bytes, flops) of one backward call: idx, u and
-    the seven (B,S,F) inputs read once, du and dv written once, against
-    about 8 f32 operations per edge and channel."""
+    """(bound_ms, bound_by, bytes, flops) of one backward call: idx, u (at
+    its own width: a bf16 u at 2 bytes) and the seven (B,S,F) inputs read
+    once, du (f32) and dv written once, against about 8 f32 operations per
+    edge and channel."""
     Bq, S, k = idx.shape
     N, F = u.shape[1], u.shape[2]
-    nbytes = idx.numel() * 4 + 2 * u.numel() * 4 + 8 * Bq * S * F * 4
+    nbytes = idx.numel() * 4 + u.numel() * (u.element_size() + 4) + 8 * Bq * S * F * 4
     flops = 8.0 * Bq * S * k * F
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
-def bwd_inputs(q, kv, u, v, k, gen, integer=False):
+def bwd_inputs(q, kv, u, v, k, gen, integer=False, values_bf16=False):
     """The backward's inputs from one forward kernel launch on (q, kv, u, v)
-    and random cotangents; ``integer`` makes them half-integers, so every
-    sum is exact and kernel and plain version must agree bit for bit."""
-    amax, amin, _, _, idx = edgeconv.edgeconv_reduce(q, kv, u, v, k)
+    (in ``values_bf16`` mode, u as the forward saves it: bf16) and random
+    cotangents; ``integer`` makes them half-integers, so every sum is exact
+    and kernel and plain version must agree bit for bit."""
+    if values_bf16:
+        u = u.to(torch.bfloat16)
+    amax, amin, _, _, idx = edgeconv.edgeconv_reduce(q, kv, u, v, k, values_bf16)
     if integer:
         cot = [torch.randint(-4, 5, amax.shape, generator=gen, device=amax.device).float() / 2
                for _ in range(4)]
@@ -472,8 +554,9 @@ def bwd_inputs(q, kv, u, v, k, gen, integer=False):
     return (idx, u, v, amax, amin, *cot)
 
 
-def compare_bwd(name, args, exact=False):
-    """Backward kernels against the plain backward on the same inputs; two
+def compare_bwd(name, args, exact=False, values_bf16=False):
+    """Backward kernels against the plain backward on the same inputs (both
+    in ``values_bf16`` mode where asked); two
     launches must give bit-identical results, the csr kernel's offsets and
     edges and the rows kernel's jmax and jmin included. Returns the max
     |diff|.
@@ -483,10 +566,10 @@ def compare_bwd(name, args, exact=False):
     plain version's atomic scatter, so the error is measured relative to
     max(sum of the terms' magnitudes, 1), the scale of f32 summation error;
     the error relative to max(|plain|, 1) is printed beside it."""
-    got = edgeconv.edgeconv_reduce_bwd_stages(*args)
-    again = edgeconv.edgeconv_reduce_bwd_stages(*args)
-    want = edgeconv.edgeconv_reduce_bwd_plain(*args)
-    da_abs = edgeconv.edge_cotangents(*args).abs()
+    got = edgeconv.edgeconv_reduce_bwd_stages(*args, values_bf16)
+    again = edgeconv.edgeconv_reduce_bwd_stages(*args, values_bf16)
+    want = edgeconv.edgeconv_reduce_bwd_plain(*args, values_bf16)
+    da_abs = edgeconv.edge_cotangents(*args, values_bf16).abs()
     scales = (edgeconv.scatter_keys(da_abs, args[0], args[1].shape[1]), da_abs.sum(2))
     del da_abs
     torch.cuda.synchronize()
@@ -513,16 +596,17 @@ def compare_bwd(name, args, exact=False):
     return max_err
 
 
-def compare_bwd_stages(name, args):
+def compare_bwd_stages(name, args, values_bf16=False):
     """Each backward kernel against its plain version, bit for bit, on the
     first ``STAGE_B`` clouds of ``args``: csr's offsets and edges against
     ``key_csr_plain``, rows' jmax, jmin and dv against ``first_hits_plain``,
-    keys' du against ``du_by_key_plain`` (the same adds in the same order).
+    keys' du against ``du_by_key_plain`` (the same adds in the same order),
+    in ``values_bf16`` mode where asked.
     Prints the longest key list, which sets the plain walk's length."""
     args = [a[:STAGE_B] for a in args]
     name = f"{name}, first {STAGE_B} clouds"
-    got = edgeconv.edgeconv_reduce_bwd_stages(*args)
-    want = edgeconv.edgeconv_reduce_bwd_stages_plain(*args)
+    got = edgeconv.edgeconv_reduce_bwd_stages(*args, values_bf16)
+    want = edgeconv.edgeconv_reduce_bwd_stages_plain(*args, values_bf16)
     torch.cuda.synchronize()
     for kernel, labels in (("csr", ("offsets", "edges")), ("rows", ("jmax", "jmin", "dv")),
                            ("keys", ("du",))):
@@ -1029,17 +1113,26 @@ def va_bwd_launches_per_call(batch):
 
 
 @contextlib.contextmanager
-def stacked_forward(on: bool):
-    """``SUG_STACKED_FORWARD`` set to 1 (``on``) or 0 inside, restored after."""
-    saved = os.environ.get("SUG_STACKED_FORWARD")
-    os.environ["SUG_STACKED_FORWARD"] = "1" if on else "0"
+def env(name: str, value):
+    """The environment variable ``name`` set to ``value`` inside (unset for
+    None), restored after."""
+    saved = os.environ.get(name)
+    if value is None:
+        os.environ.pop(name, None)
+    else:
+        os.environ[name] = value
     try:
         yield
     finally:
         if saved is None:
-            del os.environ["SUG_STACKED_FORWARD"]
+            os.environ.pop(name, None)
         else:
-            os.environ["SUG_STACKED_FORWARD"] = saved
+            os.environ[name] = saved
+
+
+def stacked_forward(on: bool):
+    """``SUG_STACKED_FORWARD`` set to 1 (``on``) or 0 inside, restored after."""
+    return env("SUG_STACKED_FORWARD", "1" if on else "0")
 
 
 def train_run(train_main, root, epochs, model_name, num_points, extra=(), cfg_file=YAML,
@@ -1089,20 +1182,20 @@ def train_run(train_main, root, epochs, model_name, num_points, extra=(), cfg_fi
     return result, got, by_kernel
 
 
-def train_and_resume(train_main, rng, model_name, num_points=N_POINTS):
-    """The training front door for one epoch on a synthetic PointDA tree,
-    then ``--resume`` from its checkpoint for a second. Returns the first
-    run's counts and its backward kernels' counts."""
+def train_and_resume(train_main, rng, model_name, num_points=N_POINTS, sets=()):
+    """The training front door (with ``--set`` pairs ``sets``) for one epoch
+    on a synthetic PointDA tree, then ``--resume`` from its checkpoint for a
+    second. Returns the first run's counts and its backward kernels' counts."""
     with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
         root = os.path.join(tmp, "data", "PointDA_data")
         write_pointda_tree(root, rng, num_points)
-        _, got, by_kernel = train_run(train_main, root, 1, model_name, num_points)
+        _, got, by_kernel = train_run(train_main, root, 1, model_name, num_points, sets=sets)
         ckpts = sorted(glob.glob(os.path.join(root, "output", "**", "*_checkpoint_epoch_1.pt"),
                                  recursive=True))
         if len(ckpts) != 1:
             fail(f"training wrote {ckpts} as its epoch-1 checkpoint")
         resumed, _, _ = train_run(train_main, root, 2, model_name, num_points,
-                                  extra=("--resume", ckpts[0]))
+                                  extra=("--resume", ckpts[0]), sets=sets)
         if [h["epoch"] for h in resumed["history"]] != [1]:
             fail(f"--resume ran epochs {[h['epoch'] for h in resumed['history']]}, expected [1]")
     print(f"--resume from {os.path.basename(ckpts[0])} continued at epoch 1", flush=True)
@@ -1159,19 +1252,20 @@ def near_tie_gaps(q, kv, a, b):
 
 
 @contextlib.contextmanager
-def card_neighbours(device, calls, order, differ):
+def card_neighbours(device, calls, order, differ, own_calls=None):
     """Around one ``_loss`` of ``card_against_cpu``: on the card, record the
     neighbour indices of every EdgeConv forward into ``calls``; on the CPU,
     have the plain path's kNN return them in the same order (the batch in
     ``order``), after holding each row where the CPU's own kNN chose another
     set to a near tie (``near_tie_gaps``). ``differ`` gathers [rows, rows
     the CPU chose otherwise, the largest gap over NEAR_TIE_REL's scale,
-    rows with a repeated index]."""
+    rows with a repeated index]; ``own_calls``, where given, (q, kv, the
+    CPU's own choice) of each call."""
     if device == "cuda":
         launch = edgeconv._launch
 
-        def recording(q, kv, u, v, k):
-            out = launch(q, kv, u, v, k)
+        def recording(*args):
+            out = launch(*args)
             calls.append(out[4].cpu())
             return out
 
@@ -1189,6 +1283,8 @@ def card_neighbours(device, calls, order, differ):
         rows = order if len(card) == len(order) else torch.cat([order, order + len(order)])
         card = card[rows].to(torch.int64)
         gaps, repeats = near_tie_gaps(q, kv, card, own)
+        if own_calls is not None:
+            own_calls.append((q, kv, own))
         differ[0] += own.shape[0] * own.shape[1]
         differ[1] += len(gaps)
         differ[2] = max([differ[2], *gaps.tolist()])
@@ -1202,9 +1298,115 @@ def card_neighbours(device, calls, order, differ):
         edgeconv.cross_knn_indices = knn
 
 
+@contextlib.contextmanager
+def own_neighbours(calls):
+    """Around one CPU ``_loss``: record the plain path's kNN choices."""
+    knn = edgeconv.cross_knn_indices
+
+    def recording(q, kv, k):
+        calls.append(knn(q, kv, k))
+        return calls[-1]
+
+    edgeconv.cross_knn_indices = recording
+    try:
+        yield
+    finally:
+        edgeconv.cross_knn_indices = knn
+
+
+class _With:
+    """``module`` with some attributes replaced."""
+
+    def __init__(self, module, **replaced):
+        self._module, self._replaced = module, replaced
+
+    def __getattr__(self, name):
+        return self._replaced[name] if name in self._replaced else getattr(self._module, name)
+
+
+@contextlib.contextmanager
+def card_maxima(device, calls):
+    """Around one ``_loss`` of ``card_against_cpu``: every max over the
+    points (``torch.amax`` over dim 1 in the DGCNN, PointNet and T-Net
+    modules) takes its values at one argmax, the first on the card, noted
+    into ``calls``, and the card's on the CPU, call by call. One index, not
+    ``amax``'s even split of the gradient over exact ties, which bf16
+    makes common among 4096 points."""
+    from sug_tpu_torch.models import dgcnn, layers, pointnet
+
+    replay = iter(calls)
+
+    def amax(x, dim):
+        if dim != 1:
+            return torch.amax(x, dim=dim)
+        if device == "cuda":
+            idx = torch.argmax(x.detach(), dim=1, keepdim=True)
+            calls.append(idx.cpu())
+        else:
+            idx = next(replay)
+            if idx.shape != (x.shape[0], 1) + tuple(x.shape[2:]):
+                fail(f"card_maxima: a max over the points of shape {tuple(x.shape)} against "
+                     f"the card's {tuple(idx.shape)}")
+        return torch.gather(x, 1, idx).squeeze(1)
+
+    modules = (dgcnn, layers, pointnet)
+    for m in modules:
+        m.torch = _With(torch, amax=amax)
+    try:
+        yield
+    finally:
+        for m in modules:
+            m.torch = torch
+
+
+@contextlib.contextmanager
+def card_transforms(device, calls, own_calls=None):
+    """Around one ``_loss`` of ``card_against_cpu``: on the card, note each
+    T-Net's output (``TransformNet``, the (B, K, K) matrix) into ``calls``;
+    on the CPU, carry the card's matrix forward in place of its own, call
+    by call, the gradient flowing through the CPU's own T-Net
+    (``own + (card − own).detach()``). ``own_calls``, where given, gathers
+    the CPU's own matrices. A T-Net's matrix comes out of bf16 products that
+    the two devices round apart by an ulp here and there, and it scales
+    every point of the cloud at once."""
+    from sug_tpu_torch.models.layers import TransformNet
+
+    forward, replay = TransformNet.forward, iter(calls or [])
+
+    def replaying(self, x):
+        own = forward(self, x)
+        if own_calls is not None:
+            own_calls.append(own.detach().cpu())
+        if device == "cuda":
+            calls.append(own.detach().cpu())
+            return own
+        if calls is None:
+            return own
+        card = next(replay).to(own.device, own.dtype)
+        return own + (card - own).detach()
+
+    TransformNet.forward = replaying
+    try:
+        yield
+    finally:
+        TransformNet.forward = forward
+
+
+def open_gates(model):
+    """GATE_SHIFT added to every BN's and LayerNorm's bias of ``model``."""
+    from sug_tpu_torch.models.bn import BatchNorm
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (BatchNorm, torch.nn.LayerNorm)):
+                m.bias.add_(GATE_SHIFT)
+            if hasattr(m, "bn_bias"):
+                m.bn_bias.add_(GATE_SHIFT)
+
+
 def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None,
-                     grl_const=0.0, variant="", replay=False):
-    """One ``_loss(train=True)`` at B=8 with the same weights, batch, FPS
+                     grl_const=0.0, variant="", replay=False, bf16=False, batch_size=CARD_B):
+    """One ``_loss(train=True)`` at B=``batch_size`` with the same weights, batch, FPS
     starts and no dropout, on the card and on the CPU plain path: the losses,
     the batch's chamfer distances (the geo SDA weights' input: ``mean2one``
     truncates 1/mean to an integer, so the weights alone can jump) and every
@@ -1213,8 +1415,14 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None,
     compared as ``PAD_ZERO_REL`` says. ``grl_const`` is the GRL's λ where
     ``cfg`` turns it on; ``variant`` names the configuration in the output.
     With ``replay`` the CPU runs on the card's EdgeConv neighbours, each row
-    it would choose otherwise held to a near tie (``NEAR_TIE_REL``); without
-    it each device chooses its own."""
+    it would choose otherwise held to a near tie (``NEAR_TIE_REL``; under
+    bf16 the comment below it says more); without
+    it each device chooses its own. With ``bf16`` (``cfg`` sets the policy)
+    the gates are opened (``open_gates``), the CPU also takes the card's
+    maxima over the points (``card_maxima``) and T-Net matrices
+    (``card_transforms``) and runs in f32 too (on its own choices), and each
+    loss, the gradients as one vector and each gradient leaf are held to the
+    CPU's own bf16-vs-f32 distance, as the comment at GATE_SHIFT says."""
     from sug_tpu_torch.data.datasets import PointCloudDataset, make_synthetic_pointda
     from sug_tpu_torch.engine.dg_trainer import DGTrainer
     from sug_tpu_torch.models.bn import BatchNorm
@@ -1223,16 +1431,22 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None,
     raw_points = raw_points or num_points
     padded = raw_points < num_points
     tag = f"{model_name} ({variant})" if variant else model_name
-    pts, labels = make_synthetic_pointda(num_per_class=2, num_points=raw_points, seed=7)
+    pts, labels = make_synthetic_pointda(num_per_class=max(2, -(-batch_size // 5)),
+                                         num_points=raw_points, seed=7)
     ds = PointCloudDataset("modelnet", pts, labels, num_points=num_points, model=model_name)
-    fps = [torch.from_numpy(rng.integers(0, num_points, CARD_B)) for _ in range(2)]
+    fps = [torch.from_numpy(rng.integers(0, num_points, batch_size)) for _ in range(2)]
     # (device, order of the batch's clouds)
-    orders = {"cuda": ("cuda", torch.arange(CARD_B)), "cpu": ("cpu", torch.arange(CARD_B))}
+    orders = {"cuda": ("cuda", torch.arange(batch_size)),
+              "cpu": ("cpu", torch.arange(batch_size))}
     if padded:
-        orders["cpu, batch reversed"] = ("cpu", torch.arange(CARD_B).flip(0))
+        orders["cpu, batch reversed"] = ("cpu", torch.arange(batch_size).flip(0))
+    if bf16:
+        orders["cpu f32"] = ("cpu", torch.arange(batch_size))
     runs, chamfer, pad_abs, rms = {}, {}, {}, {}
-    # the card's idx by pass; [rows, rows the CPU chose otherwise, largest gap, repeats]
-    neighbours, differ = {}, [0, 0, 0.0, 0]
+    # the card's idx and argmax by pass; [rows, rows the CPU chose otherwise, largest gap, repeats]
+    neighbours, maxima, differ = {}, {}, [0, 0, 0.0, 0]
+    own = {"cpu": {}, "cpu f32": {}}  # under bf16, each CPU run's own kNN choices by pass
+    transforms, own_transforms = {}, {"cpu": [], "cpu f32": []}  # the T-Nets' matrices
 
     def record(name):  # a BN's output on the padded rows, and its rms on the real ones
         def hook(module, args, out):
@@ -1247,21 +1461,35 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None,
         tr = DGTrainer(cfg, model_name=model_name, augment=False, device=dev, seed=0,
                        num_points=num_points)
         tr.model.c1.dropout_rate = tr.model.c2.dropout_rate = 0.0
+        if label == "cpu f32":
+            tr.model.set_compute_dtype(None)
+        if bf16:
+            open_gates(tr.model)
         if padded and label == "cpu":
             for name, module in tr.model.named_modules():
                 if isinstance(module, BatchNorm):
                     module.register_forward_hook(record(name))
         batch = [torch.from_numpy(a)[order].to(dev) for a in
-                 (ds.pts[:CARD_B], ds.labels[:CARD_B].astype(np.int64),
-                  ds.pts[-CARD_B:], ds.labels[-CARD_B:].astype(np.int64))]
+                 (ds.pts[:batch_size], ds.labels[:batch_size].astype(np.int64),
+                  ds.pts[-batch_size:], ds.labels[-batch_size:].astype(np.int64))]
         starts = [f[order].to(dev) for f in fps]
-        whole = label in ("cuda", "cpu")  # losses and chamfer too, not only gradients
+        whole = label in ("cuda", "cpu", "cpu f32")  # losses and chamfer too, not only gradients
         if whole:
             chamfer[label] = chamfer_distance(batch[0], batch[2]).double().cpu()
         out = {}
         for mmd_on in ((True, False) if whole else (False,)):
-            with (card_neighbours(dev, neighbours.setdefault(mmd_on, []), order, differ)
-                  if replay else contextlib.nullcontext()):
+            with contextlib.ExitStack() as stack:
+                if replay and label != "cpu f32":
+                    stack.enter_context(card_neighbours(
+                        dev, neighbours.setdefault(mmd_on, []), order, differ,
+                        own["cpu"].setdefault(mmd_on, []) if bf16 and label == "cpu" else None))
+                elif replay and bf16:
+                    stack.enter_context(own_neighbours(own["cpu f32"].setdefault(mmd_on, [])))
+                if bf16:
+                    stack.enter_context(card_maxima(dev, maxima.setdefault(mmd_on, [])))
+                    stack.enter_context(card_transforms(
+                        dev, None if label == "cpu f32" else transforms.setdefault(mmd_on, []),
+                        own_transforms.get(label)))
                 total, metrics = tr._loss(*batch, *starts, mmd_on=mmd_on, train=True,
                                           grl_const=grl_const)
             g_all = None if mmd_on else tr.grads(total)
@@ -1279,24 +1507,53 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None,
     rows, chosen_otherwise, widest, repeats = differ
     if repeats:
         fail(f"{tag} card vs CPU: the card's EdgeConv neighbour sets repeat a key on {repeats} rows")
-    if widest > NEAR_TIE_REL:
+    allowed, near_tie, policy = (1.0 - MIN_SET_AGREEMENT) * rows, NEAR_TIE_REL, ""
+    if replay and bf16:  # the CPU's own bf16 and f32 choices, measured on its bf16 run's features
+        moved, policy_gap = 0, 0.0
+        for m in own["cpu"]:
+            for (q, kv, mine), theirs in zip(own["cpu"][m], own["cpu f32"][m]):
+                gaps, _ = near_tie_gaps(q, kv, theirs, mine)
+                moved, policy_gap = moved + len(gaps), max([policy_gap, *gaps.tolist()])
+        allowed, near_tie = max(allowed, moved), max(near_tie, policy_gap)
+        policy = (f"; the CPU's own bf16 and f32 choices differ on {moved} rows, their k-th "
+                  f"distances by up to {policy_gap:.3e}")
+    if widest > near_tie:
         fail(f"{tag} card vs CPU: where the CPU's kNN chose other EdgeConv neighbours, the k-th "
-             f"distances differ by up to {widest:.3e} of |q|² + |key|² (> {NEAR_TIE_REL})")
-    if chosen_otherwise > (1.0 - MIN_SET_AGREEMENT) * rows:
+             f"distances differ by up to {widest:.3e} of |q|² + |key|² (> {near_tie:.3e}{policy})")
+    if chosen_otherwise > allowed:
         fail(f"{tag} card vs CPU: the CPU's kNN chose other EdgeConv neighbour sets on "
-             f"{chosen_otherwise} of {rows} rows (more than {1.0 - MIN_SET_AGREEMENT:.1%})")
+             f"{chosen_otherwise} of {rows} rows (more than {1.0 - MIN_SET_AGREEMENT:.1%}{policy})")
+    if own_transforms["cpu"]:  # bf16: the card's T-Net matrices against the CPU's own
+        card_t = torch.cat([t.flatten() for m in (True, False) for t in transforms[m]])
+        cpu_t, cpu_t32 = (torch.cat([t.flatten() for t in own_transforms[k]])
+                          for k in ("cpu", "cpu f32"))
+        t_gap, t_noise = ((t - cpu_t).double().norm().item() / cpu_t.double().norm().item()
+                          for t in (card_t, cpu_t32))
+        print(f"  bf16: the card's T-Net matrices carried forward on the CPU, {t_gap:.3e} "
+              f"relative L2 from the CPU's own (its bf16 from its f32: {t_noise:.3e})", flush=True)
+        if t_gap > t_noise:
+            fail(f"{tag} card vs CPU: the T-Net matrices differ by {t_gap:.3e} relative L2 "
+                 f"(> the CPU's bf16-vs-f32 {t_noise:.3e})")
     worst_loss = 0.0
     for mmd_on in (True, False):
         for k, want in runs["cpu"][mmd_on][0].items():
             got = runs["cuda"][mmd_on][0][k]
             rel = abs(got - want) / max(abs(want), 1e-12)
             worst_loss = max(worst_loss, rel)
-            if rel > MAX_LOSS_REL:
-                fail(f"{tag} card vs CPU: {k} (mmd {mmd_on}) {got} vs {want}, {rel:.3e} relative")
+            limit = MAX_LOSS_REL
+            if bf16:  # the CPU's own bf16-vs-f32 distance
+                noise = abs(runs["cpu f32"][mmd_on][0][k] - want) / max(abs(want), 1e-12)
+                if noise >= MAX_BF16_NOISE:
+                    fail(f"{tag}: {k} (mmd {mmd_on}) moves by {noise:.3e} between bf16 and f32 "
+                         f"on the CPU (>= {MAX_BF16_NOISE}): no test")
+                limit = max(limit, noise)
+            if rel > limit:
+                fail(f"{tag} card vs CPU: {k} (mmd {mmd_on}) {got} vs {want}, {rel:.3e} relative "
+                     f"(> {limit:.3e})")
     on = (f" on the card's EdgeConv neighbours (the CPU's kNN chose another set on "
-          f"{chosen_otherwise} of {rows} rows, k-th distances within {widest:.3e} of "
+          f"{chosen_otherwise} of {rows} rows{policy}, k-th distances within {widest:.3e} of "
           f"|q|² + |key|²)" if replay else "")
-    what = (f"{tag} DG _loss(train=True) at B={CARD_B}, N={num_points} ({raw_points} "
+    what = (f"{tag} DG _loss(train=True) at B={batch_size}, N={num_points} ({raw_points} "
             f"real points), card vs CPU{on}: chamfer distances within {chamfer_err:.3e} (1/mean "
             f"{1.0 / chamfer['cpu'].mean().item():.4f}); losses within {worst_loss:.3e} relative "
             f"(total {runs['cuda'][True][0]['loss_total']:.6f})")
@@ -1316,6 +1573,10 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None,
     rel = gap(runs["cuda"][False][1])
     name = max(rel, key=rel.get)
     print(f"{what}; gradients within {rel[name]:.3e} relative L2 (worst {name})", flush=True)
+    grad_limit = MAX_GRAD_REL_L2
+    if bf16:
+        check_bf16_grads(tag, runs["cuda"][False][1], g_cpu, runs["cpu f32"][False][1])
+        rel = {}  # each leaf held to its own D above
     if padded:
         card_all = gap(runs["cuda"][False][1], masked=False)
         g_rev = runs["cpu, batch reversed"][False][1]
@@ -1327,23 +1588,75 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None,
                     f"the CPU with the batch reversed {own_all[n]:.3e})" for n, z in zero.items()]
         print(f"  left out: {'; '.join(left_out) or 'nothing'}; elsewhere the CPU's own gradients "
               f"with the batch reversed within {own[moved]:.3e} (worst {moved})", flush=True)
-    if rel[name] > MAX_GRAD_REL_L2:
-        fail(f"{tag} card vs CPU: gradient of {name} differs by {rel[name]:.3e} relative L2")
+    if rel and rel[name] > grad_limit:
+        fail(f"{tag} card vs CPU: gradient of {name} differs by {rel[name]:.3e} relative L2 "
+             f"(> {grad_limit:.3e})")
 
 
-def check_logits(what, card, cpu, preds):
+def check_bf16_grads(tag, card, cpu, cpu_f32):
+    """bf16 gradients (name -> float64 CPU tensor) of the card against the
+    CPU's, held to the CPU's own bf16-vs-f32 distance D: all leaves as one
+    vector, then each leaf against its own D, as the comment at GATE_SHIFT
+    says."""
+    def vector(grads):
+        return torch.cat([grads[n].flatten() for n in sorted(cpu)])
+
+    whole, whole_d = ((vector(g) - vector(cpu)).norm().item() / vector(cpu).norm().item()
+                      for g in (card, cpu_f32))
+    top = max(g.norm().item() for g in cpu_f32.values())
+    worst, loudest, zero, over = (0.0, 0.0, "", 0.0), (0.0, ""), [], []
+    for n in sorted(cpu):
+        if cpu_f32[n].norm().item() <= ZERO_LEAF * top:
+            zero.append(n)
+            if max(card[n].norm().item(), cpu[n].norm().item()) > 1e-2 * top:
+                over.append(f"{n}, zero to rounding in f32, at {card[n].norm().item():.3e} on the "
+                            f"card and {cpu[n].norm().item():.3e} on the CPU (largest leaf "
+                            f"{top:.3e})")
+            continue
+        scale = max(cpu_f32[n].norm().item(), 1e-2 * top)
+        got, d = ((g[n] - cpu[n]).norm().item() / scale for g in (card, cpu_f32))
+        if d >= MAX_BF16_NOISE:
+            over.append(f"{n} moves by {d:.3e} between bf16 and f32 on the CPU (no test)")
+        elif got > max(d, MAX_GRAD_REL_L2):
+            over.append(f"{n} differs by {got:.3e} (its bf16-vs-f32 distance {d:.3e})")
+        worst = max(worst, (got / max(d, MAX_GRAD_REL_L2), got, n, d))
+        loudest = max(loudest, (d, n))
+    print(f"  bf16: all gradients as one vector card vs CPU {whole:.3e}, the CPU's bf16 vs its "
+          f"f32 (D) {whole_d:.3e}; each leaf against its own D (closest {worst[2]}: "
+          f"{worst[1]:.3e} against {worst[3]:.3e}; the largest D {loudest[0]:.3e}, "
+          f"{loudest[1]}); zero to rounding on both devices: {len(zero)} leaves", flush=True)
+    if whole_d >= MAX_BF16_NOISE:
+        over.append(f"all leaves move by {whole_d:.3e} between bf16 and f32 on the CPU (no test)")
+    elif whole > max(whole_d, MAX_GRAD_REL_L2):
+        over.append(f"all leaves as one vector differ by {whole:.3e} (D {whole_d:.3e})")
+    if over:
+        fail(f"{tag} bf16 card vs CPU, relative L2: {len(over)} outside their limits: "
+             + "; ".join(over))
+
+
+def check_logits(what, card, cpu, preds, cpu_f32=None):
     """Logits of the same clouds on the card and on the CPU plain path, and
-    ``infer``'s predictions for them."""
+    ``infer``'s predictions for them. Under bf16, ``cpu_f32`` are the CPU's
+    f32 logits: the limits are then the CPU's own bf16-vs-f32 gap where that
+    exceeds the f32 ones."""
     diff = (card - cpu).abs()
     disagree = int((card.argmax(-1) != cpu.argmax(-1)).sum())
     disagree_infer = int((torch.from_numpy(preds[:len(cpu)]) != cpu.argmax(-1)).sum())
+    max_diff, max_disagree, floor = MAX_LOGIT_DIFF, MAX_ARGMAX_DISAGREE, ""
+    if cpu_f32 is not None:
+        gap = (cpu - cpu_f32).abs().max().item()
+        gap_disagree = int((cpu.argmax(-1) != cpu_f32.argmax(-1)).sum())
+        max_diff = max(max_diff, gap)
+        max_disagree = max(max_disagree, gap_disagree)
+        floor = (f"; the CPU's bf16 against its f32: max |diff| {gap:.3e}, argmax disagrees on "
+                 f"{gap_disagree}; limits {max_diff:.3e} and {max_disagree}")
     print(f"{what} logits card vs CPU ({len(cpu)} clouds, |logit| up to {cpu.abs().max():.3f}): "
           f"max |diff| {diff.max():.3e}, median {diff.median():.3e}; argmax disagrees on "
           f"{disagree} (infer's predictions on {disagree_infer}); classes predicted "
-          f"{len(np.unique(preds))}", flush=True)
-    if not torch.isfinite(card).all() or diff.max() > MAX_LOGIT_DIFF:
-        fail(f"{what}: logits differ by {diff.max():.3e} (> {MAX_LOGIT_DIFF})")
-    if max(disagree, disagree_infer) > MAX_ARGMAX_DISAGREE:
+          f"{len(np.unique(preds))}{floor}", flush=True)
+    if not torch.isfinite(card).all() or diff.max() > max_diff:
+        fail(f"{what}: logits differ by {diff.max():.3e} (> {max_diff})")
+    if max(disagree, disagree_infer) > max_disagree:
         fail(f"{what}: argmax disagrees on {max(disagree, disagree_infer)} of {len(cpu)} clouds")
 
 
@@ -1387,19 +1700,22 @@ def infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds, num_points=N_POINTS)
     return total, raw, preds
 
 
-def serving_run(infer, model_name, seed, rng, dev, n_clouds, num_points=N_POINTS):
+def serving_run(infer, model_name, seed, rng, dev, n_clouds, num_points=N_POINTS, bf16=False):
     """A serving path through ``infer --model <model_name> --dg``: seeded
     weights (random BN statistics and signed scales), head biases shifted by
     minus their mean logits over 64 calibration clouds (random heads send
     every cloud to one class), a checkpoint, ``infer_runs``, and the logits
-    of 16 clouds against the CPU plain path. Returns the summed launch
-    counts, the model on the card and the calibration batch."""
+    of 16 clouds against the CPU plain path. With ``bf16``, all of it under
+    ``SUG_PRECISION=bf16`` (the model calibrated in bf16 too), and the CPU's
+    f32 logits beside its bf16 ones for ``check_logits``. Returns the summed
+    launch counts, the model on the card and the calibration batch."""
     from sug_tpu_torch.data.datasets import PointCloudDataset
     from sug_tpu_torch.engine.checkpoint import save_checkpoint
     from sug_tpu_torch.models.net_mda import NetMDA, ensemble_logits
 
+    dtype = torch.bfloat16 if bf16 else None
     torch.manual_seed(seed)
-    model = NetMDA(model_name, num_points=num_points)
+    model = NetMDA(model_name, num_points=num_points).set_compute_dtype(dtype)
     randomize_bn(model, torch.Generator().manual_seed(seed + 1))
     calib = PointCloudDataset("modelnet", synthetic_clouds(rng, B, num_points)[0], np.zeros(B),
                               num_points=num_points).pts
@@ -1411,15 +1727,21 @@ def serving_run(infer, model_name, seed, rng, dev, n_clouds, num_points=N_POINTS
         model.c2.mlp3.bias -= out["logits2"].mean(0)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         ckpt = save_checkpoint(os.path.join(tmp, f"{model_name}.pt"), model, epoch=0)
-        launches, raw, preds = infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds, num_points)
+        with env("SUG_PRECISION", "bf16" if bf16 else None):
+            launches, raw, preds = infer_runs(infer, ckpt, model_name, rng, tmp, n_clouds,
+                                              num_points)
         first = torch.from_numpy(
             PointCloudDataset("modelnet", raw[:16], np.zeros(16), num_points=num_points).pts)
+        cpu_dev = torch.device("cpu")
         with torch.no_grad():
-            card = ensemble_logits(infer.load_model(model_name, ckpt, dev, num_points),
+            card = ensemble_logits(infer.load_model(model_name, ckpt, dev, num_points, dtype),
                                    first.to(dev)).cpu()
-            cpu = ensemble_logits(infer.load_model(model_name, ckpt, torch.device("cpu"),
-                                                   num_points), first)
-    check_logits(f"{model_name} N={num_points}", card, cpu, preds)
+            cpu = ensemble_logits(infer.load_model(model_name, ckpt, cpu_dev, num_points, dtype),
+                                  first)
+            cpu_f32 = ensemble_logits(infer.load_model(model_name, ckpt, cpu_dev, num_points),
+                                      first) if bf16 else None
+    check_logits(f"{model_name} N={num_points}" + (" bf16" if bf16 else ""), card, cpu, preds,
+                 cpu_f32)
     return launches, model, batch
 
 
@@ -1437,24 +1759,27 @@ def edgeconv_cases(gen, dev, bwd=False):
                shape_inputs(shape, gen, dev, N_LARGE, real=2048))
 
 
-def compare_fwd(name, args, require_exact_idx=False):
+def compare_fwd(name, args, require_exact_idx=False, values_bf16=False):
     """The forward kernels against the plain version on ``args`` (see
     ``compare``); the gather kernel bit for bit against
     ``gather_reduce_plain`` on the select kernel's own idx; and two launches
-    bit-identical in all five outputs. Returns the max |diff| on agreeing
-    rows."""
+    bit-identical in all five outputs. In ``values_bf16`` mode all of it in
+    that mode, and the select kernel's idx the f32 mode's, bit for bit.
+    Returns the max |diff| on agreeing rows."""
     q, kv, u, v, k = args
-    got = edgeconv.edgeconv_reduce(*args)
-    idx, *again = edgeconv.edgeconv_reduce_stages(*args)
+    got = edgeconv.edgeconv_reduce(*args, values_bf16)
+    idx, *again = edgeconv.edgeconv_reduce_stages(*args, values_bf16)
     for label, g, a in zip(("amax", "amin", "s1", "s2", "idx"), got, (*again, idx)):
         if not torch.equal(g, a):
             fail(f"{name}: two forward launches on the same inputs differ in {label}")
     for label, g, w in zip(("amax", "amin", "s1", "s2"), got,
-                           edgeconv.gather_reduce_plain(got[4], u, v)):
+                           edgeconv.gather_reduce_plain(got[4], u, v, values_bf16)):
         if not torch.equal(g, w):
             fail(f"{name}: the gather kernel's {label} differs from gather_reduce_plain on its "
                  "own idx")
-    want = edgeconv.edgeconv_reduce_plain(*args)
+    if values_bf16 and not torch.equal(edgeconv.edgeconv_reduce(*args)[4], got[4]):
+        fail(f"{name}: the select kernel's idx differs between the f32 and the bf16 mode")
+    want = edgeconv.edgeconv_reduce_plain(*args, values_bf16)
     torch.cuda.synchronize()
     err, _ = compare(name, got, want, require_exact_idx)
     return err
@@ -1569,6 +1894,76 @@ def check_edgeconv_bwd(gen, dev, lat, lat_r):
     bwd_max_abs_err = max(bwd_max_abs_err, compare_bwd(name, args))
     compare_bwd_stages(name, args)
     return bwd_max_abs_err
+
+
+def check_edgeconv_bf16(dev):
+    """The EdgeConv kernels in ``values_bf16`` mode (the bf16 policy's), from
+    a generator of their own: the forward (``compare_fwd``) and the backward
+    (``compare_bwd``, each kernel also bit for bit against its plain version
+    by ``compare_bwd_stages``) at every case of ``edgeconv_cases``: DGCNN's
+    five shapes and the SA-node's cross shape at N=1024, the ragged ones, the
+    N=4096 ones and zero-padded clouds. Returns the max |diff| of the
+    forward and of the backward against their plain versions."""
+    own = torch.Generator(device=dev).manual_seed(12)
+    t0 = time.perf_counter()
+    print("values_bf16 mode (the bf16 policy's) vs plain, as above: gather, rows and keys bit "
+          "for bit against their plain versions in that mode, the select kernel's idx the f32 "
+          "mode's, two launches bit-identical:", flush=True)
+    fwd_err = 0.0
+    for name, args in edgeconv_cases(own, dev):
+        fwd_err = max(fwd_err, compare_fwd(f"{name} bf16", args, values_bf16=True))
+    bwd_err = 0.0
+    for name, args in edgeconv_cases(own, dev, bwd=True):
+        args = bwd_inputs(*args, own, values_bf16=True)
+        name += " bf16" + (f" B={args[0].shape[0]}" if args[0].shape[0] != B else "")
+        bwd_err = max(bwd_err, compare_bwd(name, args, values_bf16=True))
+        compare_bwd_stages(name, args, values_bf16=True)
+    del args
+    print(f"values_bf16 mode checks: {time.perf_counter() - t0:.1f} s", flush=True)
+    return fwd_err, bwd_err
+
+
+def time_edgeconv_bf16(dev, fwd_entry, bwd_entry):
+    """Times the kernels in ``values_bf16`` mode at the five N=1024 shapes at
+    B=64, u in bf16 as the autograd Function hands it over, from a generator
+    of their own: the forward (select, gather) and the backward (csr, rows,
+    keys), each split by kernel, beside their bounds (u read at 2 bytes) and
+    their plain versions in that mode; adds them to the two entries."""
+    own = torch.Generator(device=dev).manual_seed(13)
+    t_ops = 0.0
+    for shape in SHAPES:
+        q, kv, u, v, k = shape_inputs(shape, own, dev)
+        args = (q, kv, u.to(torch.bfloat16), v, k)
+        ms = timed_ms(lambda: edgeconv.edgeconv_reduce(*args, True), iters=20)
+        plain_ms = timed_ms(lambda: edgeconv.edgeconv_reduce_plain(*args, True), iters=5)
+        b_ms, b_by, nbytes, flops = bound(*args)
+        t_ops += flops / F32_FLOP_PER_S * 1e3 if b_by == "operations" else 0.0
+        split = kernel_split(lambda: edgeconv.edgeconv_reduce(*args, True),
+                             f"bf16 forward {shape[0]}", ms, FWD_KERNELS)
+        print(f"  bf16 forward {shape[0]}: kernels {ms:.4f} ms (gather {split['gather']:.4f} ms), "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} ({nbytes / 1e6:.1f} MB)",
+              flush=True)
+        fwd_entry["shapes"].append({"name": shape[0], "ms": ms, "plain_ms": plain_ms,
+                                    "bound_ms": b_ms, "bound_by": b_by,
+                                    **{f"{kk}_ms": t for kk, t in split.items()}})
+        bargs = bwd_inputs(q, kv, u, v, k, own, values_bf16=True)
+        bms = timed_ms(lambda: edgeconv.edgeconv_reduce_bwd(*bargs, True), iters=10)
+        bplain_ms = timed_ms(lambda: edgeconv.edgeconv_reduce_bwd_plain(*bargs, True), iters=3)
+        bb_ms, bb_by, bbytes, _ = bwd_bound(*bargs[:3])
+        bsplit = kernel_split(lambda: edgeconv.edgeconv_reduce_bwd(*bargs, True),
+                              f"bf16 backward {shape[0]}", bms, BWD_KERNELS)
+        print(f"  bf16 backward {shape[0]}: kernels {bms:.4f} ms (rows {bsplit['rows']:.4f}, "
+              f"keys {bsplit['keys']:.4f} ms), plain {bplain_ms:.4f} ms, bound {bb_ms:.4f} ms by "
+              f"{bb_by} ({bbytes / 1e6:.1f} MB)", flush=True)
+        bwd_entry["shapes"].append({"name": shape[0], "ms": bms, "plain_ms": bplain_ms,
+                                    "bound_ms": bb_ms, "bound_by": bb_by,
+                                    **{f"{kk}_ms": t for kk, t in bsplit.items()}})
+        for entry, vals in ((fwd_entry, (ms, plain_ms, b_ms)),
+                            (bwd_entry, (bms, bplain_ms, bb_ms))):
+            for key, val in zip(("ms", "plain_ms", "bound_ms"), vals):
+                entry[key] += val
+    fwd_entry["bound_by"] = "operations" if t_ops >= fwd_entry["bound_ms"] / 2 else "bytes"
+    del args, bargs
 
 
 def time_edgeconv_fwd(gen, dev, entry):
@@ -1710,6 +2105,16 @@ def main() -> None:
         print(f"  sass: {kernel} ({source}.cu): {n_hmma} HMMA instructions", flush=True)
         if n_hmma == 0:
             fail(f"{kernel}: no HMMA instruction in its SASS: not on the tensor cores")
+    # the values_bf16 instances of the EdgeConv gather, rows and keys kernels
+    functions = {src: sass_functions(cuobjdump, built[src].path)
+                 for src in {source for _, _, source in BF16_KERNELS}}
+    for label, kernel, source in BF16_KERNELS:
+        names = [f for f in functions[source] if kernel in f]
+        bf16_names = [f for f in names if "bfloat16" in f]
+        print(f"  sass: {kernel} ({source}.cu): {len(names)} instances, {len(bf16_names)} for a "
+              "bf16 u", flush=True)
+        if len(names) != 2 or len(bf16_names) != 1:
+            fail(f"{kernel}: expected an f32 and a bf16 instance in the SASS, found {names}")
 
     # 3. kernels against plain versions
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -1724,6 +2129,7 @@ def main() -> None:
     print("  fps argmax ties: the card matches the CPU", flush=True)
 
     bwd_max_abs_err = check_edgeconv_bwd(gen, dev, lat, lat_r)
+    bf16_max_abs_err, bf16_bwd_max_abs_err = check_edgeconv_bf16(dev)
 
     print(f"vector-attention kernel vs plain (tolerance: sets agree on >= {MIN_SET_AGREEMENT}, "
           f"out/m/l on agreeing rows to {VA_REL_TOL} rel of max(|plain|,1)):", flush=True)
@@ -1775,6 +2181,8 @@ def main() -> None:
 
     # 4a. the DGCNN serving slice through its entry point
     rng = np.random.default_rng(0)
+    bf16_models = {}  # the bf16 serving models of 4l, timed in phase 5
+    rng16 = np.random.default_rng(16)  # 4l's own, so the later draws stay as they were
     launches, model, batch = serving_run(infer, "DGCNN", 0, rng, dev, 256)
     fwd_launches = launches["edgeconv_fwd"]
     fps_launches = launches["fps"]
@@ -1839,6 +2247,39 @@ def main() -> None:
     _, grouped_cfg = parser_config(["--cfg", YAML, "--set", "Model", "DGCNN", *BN_GROUPS_SET])
     card_against_cpu(grouped_cfg, rng, "DGCNN", variant="BN groups 2", replay=True)
 
+    # 4l. the bf16 policy, DGCNN and PointNet: training through the front door
+    # with --set PRECISION bf16 (DGCNN at 1024 points, PointNet at 4096, the
+    # shipped config), then --resume; serving under SUG_PRECISION=bf16; one
+    # bf16 DG loss per model on the card against the CPU; PTran refused
+    t_bf16 = time.perf_counter()
+    bf16_launches = dict.fromkeys(COUNTERS, 0)
+    for model_name, n in (("DGCNN", N_POINTS), ("Pointnet", N_LARGE)):
+        got, _ = train_and_resume(train_dg_single_gpu.main, rng16, model_name, n, sets=BF16_SET)
+        launches, bf16_model, bf16_batch = serving_run(infer, model_name, 6, rng16, dev, B, n,
+                                                       bf16=True)
+        bf16_models[model_name] = bf16_model
+        bf16_launches = {k: bf16_launches[k] + got[k] + launches[k] for k in COUNTERS}
+        _, bf16_cfg = parser_config(["--cfg", YAML, "--set", "Model", model_name, *BF16_SET])
+        # PointNet's first T-Net ends in a gradient that 8 clouds leave to bf16's rounding
+        # (0.44 of its norm between bf16 and f32 on the CPU): 16 bring it under 0.3
+        card_against_cpu(bf16_cfg, rng16, model_name, n, variant="bf16", replay=True,
+                         bf16=True, batch_size=16 if model_name == "Pointnet" else CARD_B)
+    del bf16_model, bf16_batch
+    _, ptran_bf16_cfg = parser_config(["--cfg", YAML, "--set", "Model", "PTran", *BF16_SET])
+    for what, refused in (
+        ("DGTrainer", lambda: DGTrainer(ptran_bf16_cfg, model_name="PTran", device=dev)),
+        ("infer", lambda: infer.main(["--ckpt", "unused.pt", "--model", "PTran", "--dg", "--pts",
+                                      "unused.npy", "--device", "cuda"])),
+    ):
+        try:
+            with env("SUG_PRECISION", "bf16" if what == "infer" else None):
+                refused()
+        except NotImplementedError as e:
+            print(f"PTran under bf16 through {what} refused: {e}", flush=True)
+        else:
+            fail(f"PTran under bf16 through {what} was not refused")
+    print(f"bf16 policy, phase 4: {time.perf_counter() - t_bf16:.1f} s", flush=True)
+
     # 5. times
     print(f"times (CUDA events), card: {smi}", flush=True)
     entry = {"name": "edgeconv_fwd", "route": "cuda",
@@ -1858,6 +2299,18 @@ def main() -> None:
                  "shapes": []}
     time_edgeconv_bwd(gen, dev, bwd_entry)
 
+    # the two kernels in the bf16 policy's values_bf16 mode, at the same
+    # five N=1024 shapes, u in bf16; launches from phase 4l's bf16 runs
+    t_bf16 = time.perf_counter()
+    bf16_entries = [
+        {"name": f"{e['name']}_bf16", "route": "cuda", "source": e["source"],
+         "replaces": e["replaces"], "mode": "values_bf16",
+         "launches": bf16_launches[counter], "max_abs_err": err, "ms": 0.0, "plain_ms": 0.0,
+         "bound_ms": 0.0, "bound_by": "bytes", "library_ms": None, "shapes": []}
+        for e, counter, err in ((entry, "edgeconv_fwd", bf16_max_abs_err),
+                                (bwd_entry, "edgeconv_bwd", bf16_bwd_max_abs_err))]
+    time_edgeconv_bf16(dev, *bf16_entries)
+
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         fwd_ms = timed_ms(lambda: ensemble_logits(model, batch), iters=10)
@@ -1868,6 +2321,19 @@ def main() -> None:
     with torch.no_grad():
         profile_device(lambda: ensemble_logits(model, batch), "inference forward", fwd_ms)
     del model
+    model = bf16_models.pop("DGCNN")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fwd_ms = timed_ms(lambda: ensemble_logits(model, batch), iters=10)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"forward (NetMDA DGCNN eval, bf16 policy), B={B}, N={N_POINTS}: {fwd_ms:.3f} ms per "
+          f"batch, {B / fwd_ms * 1e3:.1f} clouds/s; peak device memory {peak / 2**20:.1f} MiB",
+          flush=True)
+    with torch.no_grad():
+        profile_device(lambda: ensemble_logits(model, batch), "bf16 inference forward", fwd_ms)
+    del model
+    print(f"bf16 policy, phase 5 kernels and DGCNN forward: {time.perf_counter() - t_bf16:.1f} s",
+          flush=True)
 
     # the vector-attention kernel at the PTran forward's five shapes; no
     # single PyTorch call does kNN + per-edge MLPs + per-channel softmax
@@ -2025,23 +2491,28 @@ def main() -> None:
     # the PointNet inference forward per batch of 64 at 4096 and at 1024 points
     pn_batch_1024 = torch.from_numpy(PointCloudDataset(
         "modelnet", synthetic_clouds(rng, B)[0], np.zeros(B), num_points=N_POINTS).pts).to(dev)
-    for n, pc in ((N_LARGE, pn_batch), (N_POINTS, pn_batch_1024)):
+    pn_bf16 = bf16_models.pop("Pointnet")
+    for n, pc, net, policy in ((N_LARGE, pn_batch, pn_model, "f32"),
+                               (N_POINTS, pn_batch_1024, pn_model, "f32"),
+                               (N_LARGE, pn_batch, pn_bf16, "bf16"),
+                               (N_POINTS, pn_batch_1024, pn_bf16, "bf16")):
         torch.cuda.synchronize()
         held = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         with torch.no_grad():
-            fwd_ms = timed_ms(lambda: ensemble_logits(pn_model, pc), iters=10)
+            fwd_ms = timed_ms(lambda: ensemble_logits(net, pc), iters=10)
         peak = torch.cuda.max_memory_allocated()
-        print(f"forward (NetMDA Pointnet eval, ensemble logits), B={B}, N={n}: {fwd_ms:.3f} ms per "
-              f"batch, {B / fwd_ms * 1e3:.1f} clouds/s; peak device memory {peak / 2**20:.1f} MiB "
-              f"({(peak - held) / 2**20:.1f} MiB above what the script held before)", flush=True)
+        print(f"forward (NetMDA Pointnet eval, ensemble logits, {policy}), B={B}, N={n}: "
+              f"{fwd_ms:.3f} ms per batch, {B / fwd_ms * 1e3:.1f} clouds/s; peak device memory "
+              f"{peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above what the script held "
+              "before)", flush=True)
         with torch.no_grad():
-            profile_device(lambda: ensemble_logits(pn_model, pc), f"Pointnet inference forward N={n}",
-                           fwd_ms)
+            profile_device(lambda: ensemble_logits(net, pc),
+                           f"Pointnet inference forward N={n} ({policy})", fwd_ms)
         # 2 warm-up, 10 timed and 3 profiled forwards
-        check_launches(f"Pointnet inference forward N={n}", "Pointnet", n, 0, 15)
-    del pn_model, pn_batch, pn_batch_1024
+        check_launches(f"Pointnet inference forward N={n} ({policy})", "Pointnet", n, 0, 15)
+    del pn_model, pn_bf16, pn_batch, pn_batch_1024
 
     # the DG train steps: B=64 source + 64 target clouds, full MSA/SDA loss,
     # augmentation on; bench.py's flagship shape (N=1024) for each model, and
@@ -2054,10 +2525,12 @@ def main() -> None:
                         (clouds[:B], labels[:B], clouds[B:], labels[B:])]
     lrs = (1e-4, 1e-4, 1e-4)
 
-    def time_step(trainer, model_name, n, iters, stacked):
-        """One timed run of the step: ms, clouds/s, peak memory, busy share and
-        kernels per step, and its launches checked against ``MAIN_PATHS``."""
-        forward = "stacked" if stacked else "sequential"
+    def time_step(trainer, model_name, n, iters, stacked, bf16=False):
+        """One timed run of the step (the bf16 policy on the model where
+        ``bf16``): ms, clouds/s, peak memory, busy share and kernels per step,
+        and its launches checked against ``MAIN_PATHS`` (the same in bf16)."""
+        forward = ("stacked" if stacked else "sequential") + (" bf16" if bf16 else "")
+        trainer.model.set_compute_dtype(torch.bfloat16 if bf16 else None)
         with stacked_forward(stacked):
             torch.cuda.synchronize()
             held = torch.cuda.memory_allocated()
@@ -2080,22 +2553,30 @@ def main() -> None:
                 "busy": None if busy is None else busy[0],
                 "kernels": None if busy is None else busy[1]}
 
-    # the A/B cells run sequential, stacked, stacked, sequential on one trainer
+    # the A/B cells run sequential, stacked, stacked, sequential on one trainer,
+    # and the bf16 cells sequential f32, bf16, bf16, sequential f32; a cell of
+    # both runs f32, stacked, bf16, bf16, stacked, f32
     ab = {}
+    t_steps = time.perf_counter()
     for model_name, model_cfg, iters, n in (("DGCNN", cfg, 5, N_POINTS),
                                             ("PTran", ptran_cfg, 3, N_POINTS),
                                             ("Pointnet", pn_cfg, 5, N_LARGE),
                                             ("Pointnet", pn_cfg, 5, N_POINTS),
                                             ("DGCNN", cfg, 3, N_LARGE)):
         trainer = DGTrainer(model_cfg, model_name=model_name, device=dev, seed=0, num_points=n)
-        order = (False, True, True, False) if (model_name, n) in AB_CELLS else (False,)
-        runs = [time_step(trainer, model_name, n, iters, stacked) for stacked in order]
+        inner = ([(True, False)] if (model_name, n) in AB_CELLS else []) + (
+            [(False, True)] if (model_name, n) in BF16_CELLS else [])
+        order = [(False, False)] + inner + inner[::-1] + [(False, False)]
+        runs = [(st, b16, time_step(trainer, model_name, n, iters, st, b16)) for st, b16 in order]
         if len(runs) > 1:
-            ab[f"{model_name} N={n}"] = {"sequential": [runs[0], runs[3]],
-                                         "stacked": [runs[1], runs[2]]}
+            cell = ab.setdefault(f"{model_name} N={n}", {})
+            for st, b16, r in runs:
+                label = ("stacked" if st else "sequential") + (" bf16" if b16 else "")
+                cell.setdefault(label, []).append(r)
         del trainer
-    print(f"stacked against sequential forward, DG train step at B={B}+{B} (card: {smi}; "
-          "runs in the order sequential, stacked, stacked, sequential):", flush=True)
+    print(f"the steps' A/B cells: {time.perf_counter() - t_steps:.1f} s", flush=True)
+    print(f"stacked against sequential forward and bf16 against f32, DG train step at "
+          f"B={B}+{B} (card: {smi}; runs in turns, as above):", flush=True)
     for cell, by_forward in ab.items():
         for forward, runs in by_forward.items():
             print(f"  A/B {cell} {forward}: " + "; ".join(
@@ -2105,7 +2586,8 @@ def main() -> None:
                 + f", peak {r['peak_mib']:.1f} MiB" for r in runs), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    print(json.dumps({"kernels": [entry, bwd_entry, va_entry, va_bwd_entry, md_entry, fps_entry]}))
+    print(json.dumps({"kernels": [entry, bwd_entry, va_entry, va_bwd_entry, md_entry, fps_entry,
+                                  *bf16_entries]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

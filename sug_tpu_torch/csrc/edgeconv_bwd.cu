@@ -13,7 +13,12 @@
 //   da_j   = damax*selmax + damin*selmin + ds1 + 2*a_j*ds2
 //   dv[b, s, f] = sum_j da_j;   du[b, n, f] = sum over (s, j) with idx_j == n
 // Inputs idx (B,S,k) int32 with entries in [0, N); u (B,N,F); v, amax, amin,
-// damax, damin, ds1, ds2 (B,S,F), all f32 contiguous. Outputs du (B,N,F) and
+// damax, damin, ds1, ds2 (B,S,F), all f32 contiguous.
+// values_bf16 (the bf16 policy's mode, as in the forward): u is bf16, a_j is
+// float(u) + v, dv sums the unrounded da_j, and du sums da_j rounded to bf16
+// (round to nearest even), in f32, as the TPU kernel's one-pass bf16 dU
+// product does (edgeconv_pallas.py:351-355). rows and keys are instantiated
+// for each element type of u; csr does not read u. Outputs du (B,N,F) and
 // dv (B,S,F) f32; every element of both is written, so the caller need not
 // zero them. Scratch, allocated by the caller: offsets (B,N+1) and edges
 // (B,S*k) int32, jmax and jmin (B,S,F) uint8.
@@ -63,6 +68,7 @@
 // entries; their threads walk long lists while the rest of the grid runs on.
 // The kernels allocate nothing and do not synchronise.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -84,6 +90,15 @@ constexpr int kMaxK = 255;              // jmax and jmin are uint8, k meaning "n
 __device__ __forceinline__ float edge_cotangent(float a, float gmax, float gmin, float g1,
                                                 float g2) {
   return __fadd_rn(__fadd_rn(__fadd_rn(gmax, gmin), g1), __fmul_rn(__fmul_rn(2.0f, a), g2));
+}
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// A term of du: da itself, or (values_bf16) da rounded to bf16.
+__device__ __forceinline__ float du_term(float da, const float*) { return da; }
+__device__ __forceinline__ float du_term(float da, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(da));
 }
 
 // The ints that n_seg uint16 counts of N keys take.
@@ -236,8 +251,10 @@ edgeconv_bwd_csr_kernel(const int* __restrict__ idx, int* __restrict__ offsets,
   }
 }
 
+// T: the element type of u, float or (values_bf16) __nv_bfloat16
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-edgeconv_bwd_rows_kernel(const int* __restrict__ idx, const float* __restrict__ u,
+edgeconv_bwd_rows_kernel(const int* __restrict__ idx, const T* __restrict__ u,
                          const float* __restrict__ v, const float* __restrict__ amax,
                          const float* __restrict__ amin, const float* __restrict__ damax,
                          const float* __restrict__ damin, const float* __restrict__ ds1,
@@ -250,7 +267,7 @@ edgeconv_bwd_rows_kernel(const int* __restrict__ idx, const float* __restrict__ 
   const int s = g / F, f = g - s * F;
   const size_t r = (size_t)b * S * F + g;
   const int* ids = idx + ((size_t)b * S + s) * k;
-  const float* u_b = u + (size_t)b * N * F + f;
+  const T* u_b = u + (size_t)b * N * F + f;
   const float vv = v[r], mx = amax[r], mn = amin[r];
   const float gmax = damax[r], gmin = damin[r], g1 = ds1[r], g2 = ds2[r];
   int jmx = k, jmn = k;
@@ -258,7 +275,7 @@ edgeconv_bwd_rows_kernel(const int* __restrict__ idx, const float* __restrict__ 
 #pragma unroll 4
   for (int j = 0; j < k; ++j) {
     // the same single f32 add as the forward
-    const float a = __fadd_rn(u_b[(size_t)ids[j] * F], vv);
+    const float a = __fadd_rn(to_float(u_b[(size_t)ids[j] * F]), vv);
     const bool sel_max = jmx == k && a == mx;
     const bool sel_min = jmn == k && a == mn;
     if (sel_max) jmx = j;
@@ -270,9 +287,10 @@ edgeconv_bwd_rows_kernel(const int* __restrict__ idx, const float* __restrict__ 
   jmin[r] = (uint8_t)jmn;
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
 edgeconv_bwd_keys_kernel(const int* __restrict__ offsets, const int* __restrict__ edges,
-                         const float* __restrict__ u, const float* __restrict__ v,
+                         const T* __restrict__ u, const float* __restrict__ v,
                          const uint8_t* __restrict__ jmax, const uint8_t* __restrict__ jmin,
                          const float* __restrict__ damax, const float* __restrict__ damin,
                          const float* __restrict__ ds1, const float* __restrict__ ds2,
@@ -285,7 +303,7 @@ edgeconv_bwd_keys_kernel(const int* __restrict__ offsets, const int* __restrict_
   const int* edges_b = edges + (size_t)b * S * k;
   const size_t row0 = (size_t)b * S * F + f;
   const size_t out = (size_t)b * N * F + g;
-  const float un = u[out];
+  const float un = to_float(u[out]);
   const int end = off_b[n + 1];
   float acc = 0.0f;
 #pragma unroll 4
@@ -296,7 +314,7 @@ edgeconv_bwd_keys_kernel(const int* __restrict__ offsets, const int* __restrict_
     const float a = __fadd_rn(un, v[r]);
     const float gmax = j == jmax[r] ? damax[r] : 0.0f;
     const float gmin = j == jmin[r] ? damin[r] : 0.0f;
-    acc = __fadd_rn(acc, edge_cotangent(a, gmax, gmin, ds1[r], ds2[r]));
+    acc = __fadd_rn(acc, du_term(edge_cotangent(a, gmax, gmin, ds1[r], ds2[r]), u));
   }
   du[out] = acc;
 }
@@ -309,18 +327,37 @@ int csr_segments(int N) {
   return (int)(fit < 1 ? 1 : fit > kCsrThreads / kWarp ? kCsrThreads / kWarp : fit);
 }
 
+// rows, then keys, for u of element type T.
+template <class T>
+cudaError_t rows_and_keys(const int* idx, const T* u, const float* v, const float* amax,
+                          const float* amin, const float* damax, const float* damin,
+                          const float* ds1, const float* ds2, float* du, float* dv,
+                          const int* offsets, const int* edges, uint8_t* jmax, uint8_t* jmin,
+                          int B, int S, int N, int F, int k, cudaStream_t st) {
+  const dim3 rows_grid((S * F + kThreads - 1) / kThreads, B);
+  edgeconv_bwd_rows_kernel<T><<<rows_grid, kThreads, 0, st>>>(
+      idx, u, v, amax, amin, damax, damin, ds1, ds2, dv, jmax, jmin, S, N, F, k);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const dim3 keys_grid((N * F + kThreads - 1) / kThreads, B);
+  edgeconv_bwd_keys_kernel<T><<<keys_grid, kThreads, 0, st>>>(
+      offsets, edges, u, v, jmax, jmin, damax, damin, ds1, ds2, du, S, N, F, k);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Launches the three kernels in turn on `stream`. Returns a cudaError_t:
+// Launches the three kernels in turn on `stream`. u is float, or
+// __nv_bfloat16 where values_bf16 is not 0. Returns a cudaError_t:
 // cudaErrorInvalidValue when the shapes are out of range (k above 255 or N
 // above kMaxKeys among them), otherwise the first error of the launches.
-int edgeconv_bwd(const int* idx, const float* u, const float* v, const float* amax,
+int edgeconv_bwd(const int* idx, const void* u, const float* v, const float* amax,
                  const float* amin, const float* damax, const float* damin,
                  const float* ds1, const float* ds2, float* du, float* dv, int* offsets,
                  int* edges, uint8_t* jmax, uint8_t* jmin, int B, int S, int N, int F, int k,
-                 void* stream) {
+                 int values_bf16, void* stream) {
   if (B < 1 || S < 1 || N < 1 || F < 1 || k < 1 || k > N || B > 65535 || k > kMaxK ||
       N > kMaxKeys || (long long)S * k > INT32_MAX || (long long)S * F > INT32_MAX ||
       (long long)N * F > INT32_MAX) {
@@ -334,14 +371,13 @@ int edgeconv_bwd(const int* idx, const float* u, const float* v, const float* am
   if (err != cudaSuccess) return (int)err;
   edgeconv_bwd_csr_kernel<<<B, kCsrThreads, smem, st>>>(idx, offsets, edges, S, N, k, n_seg);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const dim3 rows_grid((S * F + kThreads - 1) / kThreads, B);
-  edgeconv_bwd_rows_kernel<<<rows_grid, kThreads, 0, st>>>(
-      idx, u, v, amax, amin, damax, damin, ds1, ds2, dv, jmax, jmin, S, N, F, k);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const dim3 keys_grid((N * F + kThreads - 1) / kThreads, B);
-  edgeconv_bwd_keys_kernel<<<keys_grid, kThreads, 0, st>>>(
-      offsets, edges, u, v, jmax, jmin, damax, damin, ds1, ds2, du, S, N, F, k);
-  return (int)cudaGetLastError();
+  if (values_bf16) {
+    return (int)rows_and_keys(idx, static_cast<const __nv_bfloat16*>(u), v, amax, amin, damax,
+                              damin, ds1, ds2, du, dv, offsets, edges, jmax, jmin, B, S, N, F, k,
+                              st);
+  }
+  return (int)rows_and_keys(idx, static_cast<const float*>(u), v, amax, amin, damax, damin, ds1,
+                            ds2, du, dv, offsets, edges, jmax, jmin, B, S, N, F, k, st);
 }
 
 const char* edgeconv_bwd_error_string(int err) {

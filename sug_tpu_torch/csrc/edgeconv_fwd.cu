@@ -11,7 +11,8 @@
 //   idx    = the k smallest d_j, ascending in (d, j): the lowest j wins a tie
 //   a_j    = u[b, idx_j, :] + v[b, s, :]
 //   amax, amin, s1, s2 = max, min, sum and sum of squares of a_j over j
-// Inputs q (B,S,C), kv (B,N,C), u (B,N,F), v (B,S,F), all f32 contiguous;
+// Inputs q (B,S,C), kv (B,N,C), u (B,N,F), v (B,S,F), all f32 contiguous (u
+// bf16 with values_bf16, below);
 // outputs amax/amin/s1/s2 (B,S,F) f32 and idx (B,S,k) int32. A +inf or NaN
 // distance is never selected; a query with fewer than k finite distances
 // gets N-1 in the slots left over, so idx stays in range.
@@ -58,8 +59,15 @@
 //   rounded on its own, so a plain loop in j order repeats them bit for bit.
 //   Splitting costs one idx round trip (B·S·k·4 bytes) and shows how the
 //   forward's time divides between selection and gather.
+// values_bf16 (the bf16 policy's mode, the TPU kernel's flag of that name):
+// u arrives as bf16, rounded once by the caller, and the gather forms
+// a_j = float(u_j) + v in f32, the TPU kernel's one-pass bf16 gather; the
+// gather kernel is instantiated for each element type of u, so the f32
+// instance is the same code as before, and u is read at 2 bytes an element.
+// select is the same in both modes: neighbours are chosen in f32.
 // The kernels allocate nothing and do not synchronise.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
@@ -408,8 +416,13 @@ edgeconv_fwd_select_kernel(const float* __restrict__ q, const float* __restrict_
   }
 }
 
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// T: the element type of u, float or (values_bf16) __nv_bfloat16
+template <class T>
 __global__ void __launch_bounds__(kGatherThreads)
-edgeconv_fwd_gather_kernel(const int* __restrict__ idx, const float* __restrict__ u,
+edgeconv_fwd_gather_kernel(const int* __restrict__ idx, const T* __restrict__ u,
                            const float* __restrict__ v, float* __restrict__ amax,
                            float* __restrict__ amin, float* __restrict__ s1,
                            float* __restrict__ s2, int S, int N, int F, int k, size_t total) {
@@ -418,11 +431,11 @@ edgeconv_fwd_gather_kernel(const int* __restrict__ idx, const float* __restrict_
   const size_t row = e / F;                  // b * S + s
   const int f = (int)(e - row * F);
   const int* ir = idx + row * k;
-  const float* ub = u + (row / S) * N * F + f;
+  const T* ub = u + (row / S) * N * F + f;
   const float vf = v[e];
   float mx = -CUDART_INF_F, mn = CUDART_INF_F, sum = 0.0f, sq = 0.0f;
   for (int r = 0; r < k; ++r) {
-    const float a = __fadd_rn(ub[(size_t)ir[r] * F], vf);
+    const float a = __fadd_rn(to_float(ub[(size_t)ir[r] * F]), vf);
     mx = fmaxf(mx, a);
     mn = fminf(mn, a);
     sum = __fadd_rn(sum, a);
@@ -438,13 +451,14 @@ edgeconv_fwd_gather_kernel(const int* __restrict__ idx, const float* __restrict_
 
 extern "C" {
 
-// Launches select, then gather, on `stream`. Returns a cudaError_t:
+// Launches select, then gather, on `stream`. u is float, or __nv_bfloat16
+// where values_bf16 is not 0. Returns a cudaError_t:
 // cudaErrorInvalidValue when a shape is out of range (k above kMaxK, C above
 // kMaxC, more than 65535 clouds); otherwise cudaGetLastError() after each
 // launch.
-int edgeconv_fwd(const float* q, const float* kv, const float* u, const float* v,
+int edgeconv_fwd(const float* q, const float* kv, const void* u, const float* v,
                  float* amax, float* amin, float* s1, float* s2, int* idx,
-                 int B, int S, int N, int C, int F, int k, void* stream) {
+                 int B, int S, int N, int C, int F, int k, int values_bf16, void* stream) {
   if (B < 1 || S < 1 || N < 1 || C < 1 || F < 1 || k < 1 || k > N || k > kMaxK ||
       C > kMaxC || B > 65535) {
     return (int)cudaErrorInvalidValue;
@@ -465,9 +479,14 @@ int edgeconv_fwd(const float* q, const float* kv, const float* u, const float* v
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const size_t total = (size_t)B * S * F;
-  edgeconv_fwd_gather_kernel<<<(unsigned)((total + kGatherThreads - 1) / kGatherThreads),
-                               kGatherThreads, 0, st>>>(idx, u, v, amax, amin, s1, s2, S, N, F,
-                                                        k, total);
+  const unsigned blocks = (unsigned)((total + kGatherThreads - 1) / kGatherThreads);
+  if (values_bf16) {
+    edgeconv_fwd_gather_kernel<__nv_bfloat16><<<blocks, kGatherThreads, 0, st>>>(
+        idx, static_cast<const __nv_bfloat16*>(u), v, amax, amin, s1, s2, S, N, F, k, total);
+  } else {
+    edgeconv_fwd_gather_kernel<float><<<blocks, kGatherThreads, 0, st>>>(
+        idx, static_cast<const float*>(u), v, amax, amin, s1, s2, S, N, F, k, total);
+  }
   return (int)cudaGetLastError();
 }
 

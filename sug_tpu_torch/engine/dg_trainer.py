@@ -23,9 +23,18 @@ Loss semantics, as in the JAX package:
 - either alignment as the cosine contrastive loss instead (``NAME: CL``);
 - PURE_CLS_EPOCH gating through ``mmd_on``.
 
+Precision: the bf16 policy (``PRECISION: bf16`` at the top level or under
+``OPTIMIZATION``, or ``SUG_PRECISION=bf16``, ``models/precision.py``) is
+read once, at construction, and set on the model: the Dense layers of the
+ConvBNs, FCLayers and CALayers compute in bf16, their norms take f32
+statistics, the EdgeConv kernels run in ``values_bf16`` mode, and the
+params, their gradients and the optimizer's moments stay f32. The heads'
+logits are f32; their 256-d mid features are bf16, as in the JAX package,
+and so is what the sem alignments other than ``SOFT_MMD`` compute from them.
+
 ``model_name`` is "DGCNN", "PTran" or "Pointnet". What the port does not
-have yet (the other backbones, with the KPConv regularizer, and
-``PRECISION: bf16`` or ``SUG_PRECISION=bf16``) raises
+have yet (the other backbones, with the KPConv regularizer, and PTran under
+the bf16 policy, whose vector attention has no bf16 mode yet) raises
 ``NotImplementedError`` naming ROADMAP.md.
 """
 
@@ -43,6 +52,7 @@ from sug_tpu_torch.losses.classification import cross_entropy, discrepancy, foca
 from sug_tpu_torch.losses.mmd import PORTED_MMD, contrastive_loss_weighted, mmd_cal
 from sug_tpu_torch.models.bn import configure_from_cfg, set_bn_groups
 from sug_tpu_torch.models.net_mda import BACKBONES, NetMDA, ensemble_logits
+from sug_tpu_torch.models.precision import compute_dtype
 from sug_tpu_torch.ops.augment import augment_batch
 
 # backbones whose default is the stacked forward (the JAX package's
@@ -75,31 +85,6 @@ def make_criterion(opt_cfg, source_dataset=None, num_class: int = 10, device="cp
     return cross_entropy
 
 
-_F32_NAMES = ("f32", "fp32", "float32", "none")
-_BF16_NAMES = ("bf16", "bfloat16")
-
-
-def check_precision(cfg=None) -> None:
-    """Raise unless the compute precision is f32, read as the JAX package
-    reads it: ``PRECISION`` at the top level, else under ``OPTIMIZATION``;
-    ``SUG_PRECISION=bf16`` wins whatever the config says, since an f32
-    policy leaves the env var in force. ``cfg=None`` checks the env alone."""
-    prec = None
-    if cfg is not None:
-        prec = cfg.get("PRECISION", None)
-        if prec is None:
-            prec = (cfg.get("OPTIMIZATION", None) or {}).get("PRECISION", None)
-    if prec is not None:
-        name = str(prec).lower()
-        if name in _BF16_NAMES:
-            raise _not_ported(f"PRECISION {prec!r} (the bf16 policy, ROADMAP item 12)")
-        if name not in _F32_NAMES:
-            raise ValueError(f"unknown PRECISION {prec!r} (use 'bf16' or 'f32')")
-    env = os.environ.get("SUG_PRECISION", "")
-    if env.lower() in _BF16_NAMES:
-        raise _not_ported(f"SUG_PRECISION={env} (the bf16 policy, ROADMAP item 12)")
-
-
 def check_supported(cfg, model_name: str) -> None:
     """Raise for config keys whose paths the port does not have yet, and,
     as the JAX package does, for a malformed BN config or an alignment
@@ -108,7 +93,7 @@ def check_supported(cfg, model_name: str) -> None:
     if model_name not in BACKBONES:
         raise _not_ported(f"Model {model_name!r} (the port trains {', '.join(BACKBONES)}; "
                           "the other backbones)")
-    check_precision(cfg)
+    compute_dtype(cfg)  # an unknown PRECISION name raises ValueError
     configure_from_cfg(cfg)
     for key in ("GEO_MMD", "SEM_MMD"):
         if key in methods and methods[key][0]["NAME"] not in PORTED_MMD:
@@ -131,7 +116,8 @@ class DGTrainer:
     so the same on every device) and the generator. ``num_points`` is the
     cloud size a PTran model is built for (its ``point_mix``); DGCNN and
     Pointnet take any. ``bn_groups`` is the BN group count the config asked
-    for, set on every BN of the model."""
+    for, set on every BN of the model, and ``compute_dtype`` the precision
+    policy's (None: f32; ``torch.bfloat16``), set on its layers."""
 
     def __init__(self, cfg, model_name: str = "DGCNN", num_class: int = 10, criterion=None,
                  augment: bool = True, device="cuda", seed: int = 0, num_points: int = 1024):
@@ -147,6 +133,8 @@ class DGTrainer:
         self.model_name = model_name
         self.bn_groups = configure_from_cfg(cfg)
         set_bn_groups(self.model, self.bn_groups)
+        self.compute_dtype = compute_dtype(cfg)
+        self.model.set_compute_dtype(self.compute_dtype)  # refuses PTran under bf16
         self.grl = bool(cfg["METHODS"].get("GRL", False))
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.params = list(self.model.named_parameters())

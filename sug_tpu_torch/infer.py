@@ -11,7 +11,9 @@ an ``.npy`` of clouds, and optionally saves the predictions.
 ``--ckpt`` takes the port's own ``torch.save`` checkpoint or an ``.npz`` of
 the JAX package's variables (see the README). A PTran model is built for
 ``--num_points`` points (its ``point_mix`` layer), so its checkpoint must
-come from a model of that size.
+come from a model of that size. ``SUG_PRECISION=bf16`` serves DGCNN and
+Pointnet under the bf16 policy (``models/precision.py``); PTran under it
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,9 +29,9 @@ from sug_tpu_torch import resolve_device
 from sug_tpu_torch.data.datasets import PointCloudDataset, create_single_dataset
 from sug_tpu_torch.data.sampler import BatchIterator
 from sug_tpu_torch.engine.checkpoint import load_checkpoint
-from sug_tpu_torch.engine.dg_trainer import check_precision
 from sug_tpu_torch.engine.evaluation import Evaluator
 from sug_tpu_torch.models.net_mda import NetMDA, ensemble_logits
+from sug_tpu_torch.models.precision import compute_dtype
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -52,8 +54,10 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
 
 
 def load_model(model_name: str, ckpt: str, device: torch.device,
-               num_points: int = 1024) -> NetMDA:
-    model = NetMDA(model_name, num_points=num_points)
+               num_points: int = 1024, dtype: Optional[torch.dtype] = None) -> NetMDA:
+    """The checkpoint's model in eval mode on ``device``, computing in
+    ``dtype`` (None: f32; ``torch.bfloat16``: the bf16 policy)."""
+    model = NetMDA(model_name, num_points=num_points).set_compute_dtype(dtype)
     load_checkpoint(ckpt, model)
     return model.eval().to(device)
 
@@ -77,9 +81,9 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             "the standalone-classifier route (infer without --dg) is not ported yet; "
             "it is queued in ROADMAP.md"
         )
-    check_precision()
+    dtype = compute_dtype()  # SUG_PRECISION; the model refuses PTran under bf16
     device = resolve_device(args.device)
-    model = load_model(args.model, args.ckpt, device, args.num_points)
+    model = load_model(args.model, args.ckpt, device, args.num_points, dtype)
 
     if args.pts:
         raw = np.load(args.pts).astype(np.float32)[..., :3]

@@ -9,6 +9,13 @@ The hard and max-hard MMDs select their rows with {0, 1} masks and a
 match-count normaliser, as the JAX package does, in place of the
 reference's gathers: MMD is a set statistic, so the two agree.
 
+Dtypes follow the JAX package under the bf16 policy, where the heads' mid
+features are bf16: ``soft_mmd`` concatenates them with the f32 one-hot
+labels, so its Gram is f32; ``hard_mmd``, the plain MMD (``OFF``) and the
+contrastive loss compute in bf16; ``max_hard_mmd`` forms its kernel blocks
+in bf16 and sums them under its f32 masks in f32 (ROADMAP.md §3 records
+the bf16 ones as a fault of the JAX package against its own policy).
+
 Two quirks of the reference are kept, as the JAX package keeps them:
 ``distance2weights(method="mean2one")`` truncates ``1/mean`` to an integer
 before scaling, and ``prob_weights_soft`` normalises by the sum over the
@@ -178,8 +185,11 @@ def _class_overlap_masks(label_s, label_t, num_class: int = 10):
 def max_hard_mmd(label_s, feat_s, label_t, feat_t, num_class: int = 10) -> torch.Tensor:
     """MMD between the greatest class-matched subsets of the two batches
     (``_class_overlap_masks``), normalised by their common size."""
-    mask_s, mask_t = (m.to(feat_s.dtype) for m in _class_overlap_masks(label_s, label_t, num_class))
     K_XX, K_XY, K_YY = _mix_rbf_kernel(feat_s, feat_t, SIGMA_LIST)
+    # the masks are f32, as in the JAX package: bf16 kernel blocks promote to f32
+    dtype = torch.promote_types(K_XX.dtype, torch.float32)
+    mask_s, mask_t, K_XX, K_XY, K_YY = (t.to(dtype) for t in (
+        *_class_overlap_masks(label_s, label_t, num_class), K_XX, K_XY, K_YY))
     m = torch.clamp(torch.sum(mask_s), min=1.0)
     diag_X = torch.diagonal(K_XX) * mask_s
     diag_Y = torch.diagonal(K_YY) * mask_t

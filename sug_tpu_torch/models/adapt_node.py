@@ -11,6 +11,11 @@ CPU. In train mode the ``residual`` ConvBN takes batch statistics, and its
 gradient arrives through the backward kernel's ``du`` from the ``amax``
 cotangent. ``fps_start`` (B,) is FPS's first index per cloud (index 0 when
 None); the trainers draw it at random.
+
+Under the bf16 policy the ``residual`` ConvBN computes in bf16 and the
+re-query runs in the kernels' ``values_bf16`` mode on that bf16 feature as
+it is (rounding it again is exact), so the node features come back f32, as
+on the JAX package's kernel route (``adapt_node.py:99-110``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from torch import nn
 
 from sug_tpu_torch.models.layers import ConvBN
+from sug_tpu_torch.models.precision import Mixed
 from sug_tpu_torch.ops.edgeconv import fused_cross_edgeconv_reduce
 from sug_tpu_torch.ops.geometry import (
     farthest_point_sample,
@@ -35,7 +41,7 @@ RADIUS = 0.3
 FC_DIM = 64  # node feature width
 
 
-class SelfAdaptiveNodeModule(nn.Module):
+class SelfAdaptiveNodeModule(Mixed):
     """(B, N, C) features + (B, N, 3) coords -> (B, N, C + FC_DIM) upsampled
     features, (B, NUM_NODE, FC_DIM) node features, (B, NUM_NODE, 3) node
     offsets."""
@@ -65,7 +71,8 @@ class SelfAdaptiveNodeModule(nn.Module):
         zeros_v = torch.zeros(node_loc.shape[:2] + (FC_DIM,),
                               dtype=feats.dtype, device=feats.device)
         node_fea = fused_cross_edgeconv_reduce(
-            node_loc, xyz, residual_fea, zeros_v, min(NSAMPLE, xyz.shape[1])
+            node_loc, xyz, residual_fea, zeros_v, min(NSAMPLE, xyz.shape[1]),
+            values_bf16=self.compute_dtype == torch.bfloat16,
         )[0]
 
         interpolated = three_nn_interpolate(xyz, node_loc, node_fea, k=3)

@@ -28,6 +28,15 @@ forward, whose two groups are the source and the target half).
 The JAX package keeps the group count in process-global state that flax
 reads while tracing; here it lives on the modules (``GroupedNorm.groups``),
 set by ``set_bn_groups`` and, for the stacked forward, ``stacked_bn``.
+
+Mixed precision (``models/precision.py``): ``forward(x, dtype)`` returns
+``dtype``, or, where that is None, the promotion of ``x`` with the f32
+params, as flax's ``BatchNorm(dtype=...)`` does. A bf16 ``x`` is normalised
+in f32 (statistics, ``x − mean`` and the affine) and the result cast once,
+as flax does; in train mode ``_NormLow`` keeps only that bf16 ``x`` for the
+backward and recomputes its f32 view there, where autograd over the f32
+formula would keep two full-size f32 tensors. An f32 ``x`` takes the f32
+arithmetic above bit for bit. The running stats stay f32.
 ``torch.nn.functional.batch_norm`` is not used: its Welford variance rounds
 differently, and its running variance takes the unbiased estimate.
 """
@@ -36,7 +45,7 @@ from __future__ import annotations
 
 import contextlib
 import os
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import torch
 from torch import nn
@@ -101,9 +110,16 @@ class BatchNorm(GroupedNorm):
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        compute = torch.promote_types(x.dtype, self.weight.dtype)
+        out = compute if dtype is None else dtype
+        if x.dtype != compute:
+            return self._low(x, compute, out)
         if self.training and self.groups > 1:
-            return self._grouped(x)
+            return self._grouped(x).to(out)
+        return self._one_group(x).to(out)
+
+    def _one_group(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             mean, var = batch_stats(x)
             update_running(self.running_mean, self.running_var, mean, var)
@@ -123,6 +139,65 @@ class BatchNorm(GroupedNorm):
         shape = (g,) + (1,) * (xg.dim() - 2) + (x.shape[-1],)
         mul = torch.rsqrt(var + self.eps) * self.weight  # each group's slopes
         return ((xg - mean.reshape(shape)) * mul.reshape(shape) + self.bias).reshape(x.shape)
+
+    def _low(self, x: torch.Tensor, compute: torch.dtype, out: torch.dtype) -> torch.Tensor:
+        """A lower-precision ``x`` (bf16) normalised in ``compute`` (f32),
+        cast to ``out``."""
+        if not self.training:
+            mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+            return ((x.to(compute) - self.running_mean) * mul + self.bias).to(out)
+        y, mean, var = _NormLow.apply(x, self.weight, self.bias, self.groups, self.eps, out)
+        if self.groups > 1:
+            update_running_grouped(self.running_mean, self.running_var, mean, var,
+                                   self.momentum_mode)
+        else:
+            update_running(self.running_mean, self.running_var, mean[0], var[0])
+        return y
+
+
+class _NormLow(torch.autograd.Function):
+    """Train-mode BN of a bf16 ``x`` over ``groups`` contiguous batch groups,
+    in the params' f32: statistics ``mean(x)`` and ``mean(x²) − mean²``
+    (clamped at 0 with one group, as flax's ``_compute_stats``; not with
+    groups, as the JAX grouped class), then ``(x − mean) * (rsqrt(var + eps)
+    * scale) + bias`` cast to ``out_dtype``. Returns y and the (g, C) mean
+    and variance. The backward is the gradient of that formula, taken in
+    f32 from the saved bf16 ``x`` and cast to bf16 once, as JAX casts the
+    summed f32 cotangent of ``x.astype(f32)``."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, groups: int, eps: float, out_dtype):
+        check_groups(x.shape[0], groups)
+        xg = x.reshape(groups, -1, x.shape[-1]).to(weight.dtype)  # (g, M, C)
+        mean = torch.mean(xg, dim=1)
+        var = torch.mean(torch.square(xg), dim=1) - mean * mean
+        if groups == 1:
+            var = torch.clamp(var, min=0.0)
+        mul = torch.rsqrt(var + eps) * weight
+        y = xg.sub_(mean[:, None]).mul_(mul[:, None]).add_(bias).to(out_dtype).reshape(x.shape)
+        ctx.save_for_backward(x, weight, mean, var, mul)
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, var, mul = ctx.saved_tensors
+        g, C = mean.shape
+        xc = x.reshape(g, -1, C).to(weight.dtype).sub_(mean[:, None])  # x − mean
+        m = xc.shape[1]
+        dyg = dy.reshape(g, -1, C).to(weight.dtype)
+        sum_dy = torch.sum(dyg, dim=1)
+        sum_dy_xc = torch.sum(dyg * xc, dim=1)
+        rstd = torch.rsqrt(var + ctx.eps)
+        dvar = -0.5 * rstd / (var + ctx.eps) * weight * sum_dy_xc  # d rsqrt(var + eps)
+        if g == 1:  # the clamp passes no gradient where it bit
+            dvar = torch.where(var > 0, dvar, 0.0)
+        # dy·mul, the mean's share −Σdy·mul/m, and the variance's 2·dvar·(x − mean)/m
+        dx = (dyg * mul[:, None]).add_((-sum_dy * mul / m)[:, None])
+        dx.add_(xc.mul_((2.0 / m) * dvar[:, None]))
+        return (dx.to(x.dtype).reshape(x.shape), torch.sum(sum_dy_xc * rstd, dim=0),
+                torch.sum(sum_dy, dim=0), None, None, None)
 
 
 def set_bn_groups(module: nn.Module, groups: int, momentum_mode: str = "mean") -> None:

@@ -13,6 +13,13 @@ gradients reach every edge through the kernel's ds1/ds2 cotangents, and the
 max/min branch through damax/damin. With BN groups (``GroupedNorm``) the
 statistics are taken per contiguous batch group from the same sums, as the
 JAX block does (``dgcnn.py:92-141``).
+
+Under the bf16 policy the blocks' ``u``/``v`` products stay f32, as the JAX
+``conv_dense`` has no dtype, and the kernels run in their ``values_bf16``
+mode (``u`` gathered rounded to bf16, f32 sums); the blocks' BN works on
+those f32 sums, so every block returns f32, and so do ``reproject``,
+``conv5`` and ``bn5``. Only the SA-node's ``residual`` ConvBN computes in
+bf16.
 """
 
 from __future__ import annotations
@@ -26,14 +33,16 @@ from torch import nn
 from sug_tpu_torch.models.adapt_node import SelfAdaptiveNodeModule
 from sug_tpu_torch.models.bn import (EPS, BatchNorm, GroupedNorm, check_groups,
                                      update_running, update_running_grouped)
+from sug_tpu_torch.models.precision import Mixed
 from sug_tpu_torch.ops.edgeconv import fused_edgeconv_reduce
 
 K_NEIGHBORS = 20
 
 
-class EdgeConvBlock(GroupedNorm):
+class EdgeConvBlock(GroupedNorm, Mixed):
     """One EdgeConv block, the counterpart of ``_EdgeConvBlock``: kNN-20
-    graph -> Dense + BN + leaky_relu(0.01) -> max over the neighbours."""
+    graph -> Dense + BN + leaky_relu(0.01) -> max over the neighbours; the
+    kernels in ``values_bf16`` mode under the bf16 policy."""
 
     def __init__(self, in_features: int, features: int):
         super().__init__()
@@ -49,7 +58,8 @@ class EdgeConvBlock(GroupedNorm):
         w1, w2 = w[:, :C], w[:, C:]
         u = torch.matmul(x, w1.t())
         v = torch.matmul(x, (w2 - w1).t())
-        amax, amin, s1, s2, _ = fused_edgeconv_reduce(x, u, v, K_NEIGHBORS)
+        amax, amin, s1, s2, _ = fused_edgeconv_reduce(
+            x, u, v, K_NEIGHBORS, values_bf16=self.compute_dtype == torch.bfloat16)
 
         if self.training and self.groups > 1:
             inv, off = self._group_slopes(s1, s2)

@@ -9,7 +9,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from sug_tpu_torch.models.layers import FCLayer
+from sug_tpu_torch.models.layers import Dense, FCLayer
 
 VARIANTS = ("dgcnn", "relu", "ptran")
 
@@ -25,8 +25,10 @@ class ClassifierHead(nn.Module):
 
     Dropout (rate ``dropout_rate``, after ``mlp1`` and after the mid
     feature) runs in train mode only, as flax's ``nn.Dropout``: a kept unit
-    is scaled by ``1 / (1 - rate)``. Its masks come from ``generator``, which
-    train mode with a non-zero rate requires."""
+    is scaled by ``1 / (1 - rate)``, in the features' dtype. Its masks come
+    from ``generator``, which train mode with a non-zero rate requires.
+    Under the bf16 policy ``mlp1``, ``mlp2`` and the mid feature are bf16
+    and ``mlp3`` promotes them to f32 logits, as in the JAX head."""
 
     def __init__(self, num_class: int = 10, variant: str = "dgcnn", dropout_rate: float = 0.4):
         super().__init__()
@@ -36,7 +38,7 @@ class ClassifierHead(nn.Module):
         self.mlp1 = None if variant == "ptran" else FCLayer(1024, 512, act=act,
                                                            use_bias=variant == "dgcnn")
         self.mlp2 = FCLayer(512, 256, act=act, use_bias=True)
-        self.mlp3 = nn.Linear(256, num_class)
+        self.mlp3 = Dense(256, num_class)  # no dtype: f32 logits from bf16 features
         self.dropout_rate = dropout_rate
 
     def dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:

@@ -3,6 +3,8 @@
 "Pointnet", in eval and train mode: the per-domain forward, the stacked
 both-domains forward (``domain="stacked"``) and the gradient-reversal layer.
 The other backbones come with later slices (ROADMAP.md, "Modules to port").
+``set_compute_dtype`` sets the bf16 policy (``models/precision.py``) on
+DGCNN and Pointnet; PTran under bf16 raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from sug_tpu_torch.models.heads import ClassifierHead
 from sug_tpu_torch.models.bn import stacked_bn
 from sug_tpu_torch.models.layers import CALayer, flax_init_, grad_reverse
 from sug_tpu_torch.models.pointnet import PointNetGenerator
+from sug_tpu_torch.models.precision import set_compute_dtype
 from sug_tpu_torch.models.ptran import PointTransformerGenerator
 
 DOMAINS = (None, "source", "target", "both")
@@ -74,6 +77,17 @@ class NetMDA(nn.Module):
         self.attention_s = CALayer()
         self.attention_t = CALayer()
         flax_init_(self, generator)
+
+    def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> "NetMDA":
+        """The compute dtype of every layer that follows the policy: None
+        (f32) or ``torch.bfloat16``. PTran has no bf16 path and raises: its
+        vector-attention kernels have no bf16 mode yet."""
+        if dtype is not None and self.model_name == "PTran":
+            raise NotImplementedError(
+                "PRECISION bf16 for Model 'PTran' (the vector attention's bf16 mode, ROADMAP "
+                "item 12b) is not ported yet; it is queued in ROADMAP.md")
+        set_compute_dtype(self, dtype)
+        return self
 
     def forward(
         self,

@@ -1,7 +1,12 @@
 """PointNet DG generator: counterpart of ``PointNetGenerator`` in
 ``sug_tpu/models/pointnet.py``. Channels-last (B, N, C); every shared MLP is
 a Dense over the channel axis. The standalone ``PointNetClassifier`` comes
-with the other standalone classifiers (ROADMAP.md)."""
+with the other standalone classifiers (ROADMAP.md).
+
+Under the bf16 policy the ConvBNs return bf16 and each T-Net an f32 matrix,
+so the product with the second T-Net promotes its bf16 features to f32, as
+the JAX ``einsum`` does; the max over the points stays bf16 and ``bn1``
+promotes it to an f32 global feature."""
 
 from __future__ import annotations
 
@@ -37,7 +42,8 @@ class PointNetGenerator(nn.Module):
     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         x = torch.bmm(pc, self.trans_net1(pc))
         x = self.conv2(self.conv1(x))
-        x = torch.bmm(x, self.trans_net2(x))
+        # bf16 features promote to the T-Net matrix's f32, as in the JAX einsum
+        x = torch.bmm(x.to(torch.promote_types(x.dtype, torch.float32)), self.trans_net2(x))
         x, node_fea, node_off = self.sa_node(x, pc, fps_start)
         x = self.conv5(self.conv4(x))
         return self.bn1(torch.amax(x, dim=1)), node_fea, node_off

@@ -1,47 +1,66 @@
-"""The port refuses the numerics it does not have, the bf16 policy, and takes
-the BN groups the JAX package takes. Each case sets a config and an
-environment, asks the JAX package what it would compute under them
-(``sug_tpu.models.precision.compute_dtype()`` and the group count of
-``sug_tpu.models.bn.configure_from_cfg``), and checks that the port's
-``check_supported`` (or ``infer``) raises exactly where the JAX package
-leaves f32, accepts the rest, and that the port's ``configure_from_cfg``
-gives the JAX package's group count."""
+"""The port reads the precision policy and the BN groups as the JAX package
+does. Each case sets a config and an environment, asks the JAX package what
+it would compute under them (``sug_tpu.models.precision.compute_dtype()``
+and the group count of ``sug_tpu.models.bn.configure_from_cfg``), and checks
+that the port's ``check_supported`` accepts the config for DGCNN and for
+PointNet, that the port's compute dtype (``models.precision.compute_dtype``,
+which the trainer and ``infer`` read once and set on the model) is the JAX
+one, bf16 or f32, that an unknown name raises ``ValueError`` in both, and
+that the port's ``configure_from_cfg`` gives the JAX package's group count.
+The ``infer`` case serves a checkpoint under ``SUG_PRECISION=bf16`` with
+both models. PTran has no bf16 path yet (its vector attention's bf16 mode
+is queued in ROADMAP.md): the model refuses the policy
+(``NetMDA.set_compute_dtype``), so under each of the three triggers the
+trainer (``check_supported``, then ``DGTrainer``) and ``infer`` raise
+``NotImplementedError`` naming ROADMAP.md."""
 
 from __future__ import annotations
 
 import copy
 
 import jax.numpy as jnp
+import numpy as np
 import pytest
+import torch
 
 from sug_tpu.models import bn as jbn
 from sug_tpu.models import precision as jprecision
 from sug_tpu_torch import infer
-from sug_tpu_torch.engine.dg_trainer import check_supported
+from sug_tpu_torch.engine.checkpoint import save_checkpoint
+from sug_tpu_torch.engine.dg_trainer import DGTrainer, check_supported
 from sug_tpu_torch.models.bn import configure_from_cfg
+from sug_tpu_torch.models.net_mda import NetMDA
+from sug_tpu_torch.models.precision import Mixed, compute_dtype
 from sug_tpu_torch.utils.config import parser_config
 
 YAML = "tools/cfgs/cfgs_local/DG_unified_loss.yaml"
+MODELS = ("DGCNN", "Pointnet")
+TORCH_DTYPE = {None: None, jnp.bfloat16: torch.bfloat16}
 
 # (id, config edit, env, the error the port raises or None, the entry point)
 CASES = [
-    ("optimization_bf16", {"OPTIMIZATION.PRECISION": "bf16"}, {}, NotImplementedError, "train"),
-    ("env_bf16_over_f32", {"PRECISION": "f32"}, {"SUG_PRECISION": "bf16"}, NotImplementedError,
-     "train"),
-    ("env_bfloat16", {}, {"SUG_PRECISION": "bfloat16"}, NotImplementedError, "train"),
+    ("optimization_bf16", {"OPTIMIZATION.PRECISION": "bf16"}, {}, None, "train"),
+    ("env_bf16_over_f32", {"PRECISION": "f32"}, {"SUG_PRECISION": "bf16"}, None, "train"),
+    ("env_bfloat16", {}, {"SUG_PRECISION": "bfloat16"}, None, "train"),
     ("env_bn_groups", {}, {"SUG_BN_GROUPS": "2"}, None, "train"),
     ("per_replica", {"MODEL_CFG.BN_SEMANTICS": "per_replica", "MODEL_CFG.BN_GROUPS": 2}, {},
      None, "train"),
     ("per_replica_bf16", {"MODEL_CFG.BN_SEMANTICS": "per_replica", "PRECISION": "bf16"}, {},
-     NotImplementedError, "train"),
+     None, "train"),
     ("env_bn_groups_under_global", {"MODEL_CFG.BN_SEMANTICS": "global"}, {"SUG_BN_GROUPS": "2"},
      None, "train"),
     ("env_bn_groups_one", {}, {"SUG_BN_GROUPS": "1"}, None, "train"),
     ("precision_none", {"PRECISION": "none"}, {}, None, "train"),
     ("precision_unknown", {"PRECISION": "fp8"}, {}, ValueError, "train"),
     ("shipped_config", {}, {}, None, "train"),
-    ("infer_env_bf16", {}, {"SUG_PRECISION": "bf16"}, NotImplementedError, "infer"),
+    ("infer_env_bf16", {}, {"SUG_PRECISION": "bf16"}, None, "infer"),
 ]
+# the three triggers of the policy, as (config edit, env)
+TRIGGERS = {
+    "precision": ({"PRECISION": "bf16"}, {}),
+    "optimization_precision": ({"OPTIMIZATION.PRECISION": "bfloat16"}, {}),
+    "env": ({}, {"SUG_PRECISION": "bf16"}),
+}
 
 
 @pytest.fixture
@@ -68,35 +87,73 @@ def _config(edits):
 
 
 def _jax_policy(cfg):
-    """Whether the JAX package computes in f32 under ``cfg`` and the current
-    environment, and its BN group count; raises as it raises."""
+    """The JAX package's compute dtype (None for f32) under ``cfg`` and the
+    current environment, and its BN group count; raises as it raises."""
     jprecision.configure_from_cfg(cfg)
     groups = jbn.configure_from_cfg(cfg, 1)
-    return jprecision.compute_dtype() is None, groups
+    return jprecision.compute_dtype(), groups
+
+
+def _serve(tmp_path, monkeypatch, model_name):
+    """``infer.main`` on two clouds with a checkpoint of ``model_name``;
+    returns the compute dtype of the model it served and its predictions."""
+    ckpt = save_checkpoint(str(tmp_path / f"{model_name}.pt"),
+                           NetMDA(model_name, generator=torch.Generator().manual_seed(0)), 0)
+    pts = tmp_path / "clouds.npy"
+    np.save(pts, np.random.default_rng(0).normal(size=(2, 128, 3)).astype(np.float32))
+    served, load = [], infer.load_model
+
+    def recording(*args, **kwargs):
+        model = load(*args, **kwargs)
+        served.extend({m.compute_dtype for m in model.modules() if isinstance(m, Mixed)})
+        return model
+
+    monkeypatch.setattr(infer, "load_model", recording)
+    result = infer.main(["--ckpt", ckpt, "--model", model_name, "--dg", "--pts", str(pts),
+                         "--num_points", "128", "--batch_size", "2", "--device", "cpu"])
+    return served, result["preds"]
 
 
 @pytest.mark.parametrize("edits,env,error,entry", [c[1:] for c in CASES],
                          ids=[c[0] for c in CASES])
-def test_port_refuses_what_jax_computes_otherwise(clean_state, edits, env, error, entry):
+def test_port_refuses_what_jax_computes_otherwise(clean_state, tmp_path, edits, env, error,
+                                                  entry):
     for var, value in env.items():
         clean_state.setenv(var, value)
     cfg = _config(edits)
     if error is ValueError:
         with pytest.raises(ValueError):
             _jax_policy(cfg)
-        with pytest.raises(ValueError, match="unknown PRECISION"):
-            check_supported(cfg, "DGCNN")
+        for model_name in MODELS:
+            with pytest.raises(ValueError, match="unknown PRECISION"):
+                check_supported(cfg, model_name)
         return
-    f32, groups = _jax_policy(cfg)
-    assert f32 is (error is None)
+    dtype, groups = _jax_policy(cfg)
     assert configure_from_cfg(cfg) == groups
+    for model_name in MODELS:
+        check_supported(cfg, model_name)
+    assert compute_dtype(cfg) == TORCH_DTYPE[dtype]
     if entry == "infer":
-        assert jprecision.compute_dtype() == jnp.bfloat16
-        with pytest.raises(error, match="ROADMAP item 12"):
-            infer.main(["--ckpt", "missing.pt", "--dg", "--pts", "missing.npy",
-                        "--device", "cpu"])
-    elif error is None:
-        check_supported(cfg, "DGCNN")
-    else:
-        with pytest.raises(error, match="ROADMAP item 12"):
-            check_supported(cfg, "DGCNN")
+        assert dtype == jnp.bfloat16
+        for model_name in MODELS:
+            served, preds = _serve(tmp_path, clean_state, model_name)
+            assert served == [torch.bfloat16] and preds.shape == (2,)
+
+
+# infer reads the environment alone, the trainer the config and the environment
+@pytest.mark.parametrize("trigger,entry", [(t, "check_supported") for t in TRIGGERS]
+                         + [("env", "infer")])
+def test_ptran_under_bf16_raises(clean_state, trigger, entry):
+    edits, env = TRIGGERS[trigger]
+    for var, value in env.items():
+        clean_state.setenv(var, value)
+    cfg = _config(edits)
+    assert _jax_policy(cfg)[0] == jnp.bfloat16
+    if entry == "infer":
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            infer.main(["--ckpt", "missing.pt", "--model", "PTran", "--dg", "--pts",
+                        "missing.npy", "--device", "cpu"])
+    else:  # the trainer's front door: check_supported reads the policy, the model refuses it
+        check_supported(cfg, "PTran")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            DGTrainer(cfg, model_name="PTran", device="cpu")
