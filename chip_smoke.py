@@ -15,8 +15,11 @@ ends the run with a non-zero exit; the phases, in order:
    kernels whose D×D products run as 3xTF32 ``mma.sync`` (the
    vector-attention forward and the backward's edge and wgrad kernels),
    failing where there are none or where the toolkit has no ``cuobjdump``;
-   and the two instances (f32 and bf16 ``u``) of the EdgeConv gather, rows
-   and keys kernels, the bf16 ones for the ``values_bf16`` mode;
+   each of those three kernels' f32 and bf16 instances, the bf16 ones (the
+   vector attention's bf16 mode) holding bf16 HMMA and no TF32 one, the f32
+   ones the reverse; and the two instances (f32 and bf16 ``u``) of the
+   EdgeConv gather, rows and keys kernels, the bf16 ones for the
+   ``values_bf16`` mode;
 3. kernels against their plain PyTorch versions on the card: the EdgeConv
    forward and backward at the shapes the DGCNN twin-head forward and
    backward give them at B=64, at ragged sizes (N=1000, S=61), on exact-tie
@@ -33,7 +36,8 @@ ends the run with a non-zero exit; the phases, in order:
    vector-attention forward at the five
    levels of the PTran forward at B=64 (N=1024 and the ragged N=1000), at
    D=128, and on integer lattices with duplicate points, where the
-   neighbour indices must match index for index; the vector-attention
+   neighbour indices must match index for index, two launches
+   bit-identical; the vector-attention
    backward, fed the forward kernel's own idx, m, l and out, at the same
    levels of N=1024, at the ragged levels at D=128 and on a lattice with
    duplicate points: the edge kernel's staged per-edge tensors against the
@@ -58,6 +62,10 @@ ends the run with a non-zero exit; the phases, in order:
    N=4096, zero-padded): gather, rows and keys bit for bit against their
    plain versions in that mode, the select kernel's idx the f32 mode's, two
    launches bit-identical, the whole against the plain version as above;
+   then the vector-attention forward and backward in their bf16 mode
+   (PTran's under the bf16 policy: q, key and val in bf16) at the same
+   cases as in f32, against their bf16 plain versions, with the limits of
+   the comment at VA_BF16_MARKERS, two launches bit-identical;
 4. the slices through their entry points, each with every launch count set
    to 0 just before it and read just after: ``sug_tpu_torch.infer``
    (``--model DGCNN --dg --batch_size 64``) on synthetic clouds and a
@@ -95,14 +103,14 @@ ends the run with a non-zero exit; the phases, in order:
    its sequential path); then the stacked DGCNN loss (GRL λ = 0.7, CL,
    max-hard) and the grouped one (2 BN groups) at B=8 on the card against
    the CPU, held as above; then the bf16 policy: ``train_dg_single_gpu --set
-   PRECISION bf16`` for DGCNN at 1024 points and PointNet at 4096 (one epoch
-   and ``--resume``), ``infer --dg`` under ``SUG_PRECISION=bf16`` for both
-   with logits of 16 clouds against the CPU, one bf16 ``_loss`` per model
-   (DGCNN at B=8, PointNet at 16) on the card against the CPU (on the card's
-   neighbours, maxima over the points and T-Net matrices, every norm's bias
-   raised: the comment at GATE_SHIFT), the
-   launches as ``MAIN_PATHS`` says, and PTran under bf16 refused by the
-   trainer and by ``infer``. Every path runs
+   PRECISION bf16`` for DGCNN and PTran at 1024 points and PointNet at 4096
+   (one epoch and ``--resume``), ``infer --dg`` under ``SUG_PRECISION=bf16``
+   for the three with logits of 16 clouds against the CPU, one bf16
+   ``_loss`` per model (DGCNN and PTran at B=8, PointNet at 16) on the card
+   against the CPU (on the card's neighbours, maxima over the points or over
+   PTran's neighbours and T-Net matrices, every norm's bias raised: the
+   comments at GATE_SHIFT and BF16_SATURATED), the launches as
+   ``MAIN_PATHS`` says, in bf16 as in f32. Every path runs
    the FPS kernel (DGCNN's and PointNet's SA-node once a forward, PTran's
    four TransitionDowns); no path at 1024 points launches min-dists;
 5. times, with CUDA events after warm-up: each kernel shape beside its bound,
@@ -128,15 +136,19 @@ ends the run with a non-zero exit; the phases, in order:
    points, PTran at 1024, PointNet at 4096) run the step with the
    sequential and the stacked forward in turns on one trainer, sequential,
    stacked, stacked, sequential, and a summary lists each run; the cells of
-   ``BF16_CELLS`` (DGCNN and PointNet at 1024 and 4096 points) also run the
-   step under the bf16 policy, f32 and bf16 in turns on one trainer; the
-   DGCNN and PointNet forwards also under bf16; and the EdgeConv kernels in
-   ``values_bf16`` mode at the five N=1024 shapes, split by kernel, beside
-   their bounds (u read at 2 bytes) and plain versions.
+   ``BF16_CELLS`` (DGCNN and PointNet at 1024 and 4096 points, PTran at
+   1024) also run the step under the bf16 policy, f32 and bf16 in turns on
+   one trainer; the DGCNN, PTran and PointNet forwards also under bf16; the
+   EdgeConv kernels in ``values_bf16`` mode at the five N=1024 shapes, split
+   by kernel, beside their bounds (u read at 2 bytes) and plain versions;
+   and the vector-attention kernels in the bf16 mode at the five PTran
+   levels, beside their bounds (the D×D products at the bf16 peak, q, key,
+   val at 2 bytes) and bf16 plain versions, the backward split by kernel.
 
 The line before the last is a JSON object with every kernel's numbers (the
-two EdgeConv kernels' ``values_bf16`` mode as entries of their own); the
-last line is ``{"ok": true, "device": {...}}``.
+two EdgeConv kernels' ``values_bf16`` mode and the two vector-attention
+kernels' bf16 mode as entries of their own); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -186,6 +198,7 @@ RAGGED = [
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 TF32_FLOP_PER_S = 495e12  # dense, on the tensor cores
+BF16_FLOP_PER_S = 989e12  # dense, on the tensor cores
 # kernel against plain version: share of rows whose neighbour sets must agree
 # (near-tied distances may order differently: the two sum C products in
 # different orders), and the tolerance on agreeing rows: 1e-5 relative to
@@ -296,6 +309,52 @@ VA_CLUSTER = 2
 TENSOR_CORE_KERNELS = (("vecattn_fwd_kernel", "vecattn_fwd"),
                        ("vecattn_bwd_edge_kernel", "vecattn_bwd"),
                        ("vecattn_bwd_wgrad_kernel", "vecattn_bwd"))
+# The vector attention's bf16 mode (PRECISION: bf16, PTran; the TPU kernels'
+# precise=False): each of those kernels has an f32 and a bf16 instance,
+# told apart in the SASS by a piece of the mangled name of the bf16 one
+# (the template argument __nv_bfloat16, or wgrad's <true>). The bf16
+# instances must hold bf16 HMMA and no TF32 one, the f32 ones the reverse.
+VA_BF16_MARKERS = {"vecattn_fwd_kernel": "__nv_bfloat16",
+                   "vecattn_bwd_edge_kernel": "__nv_bfloat16",
+                   "vecattn_bwd_wgrad_kernel": "ILb1E"}
+# bf16 kernels against their bf16 plain versions. Both round the same
+# operands to bf16 at the same points (the TPU kernels'), but their f32 sums
+# run in another order (the tensor cores' against the CPU's or cuBLAS's),
+# and where a sum lies within that order's rounding (about 1e-7 of its terms)
+# of a bf16 rounding boundary, the two round the next product's operand to
+# neighbouring bf16 values, 2^-8 of it apart. The next product then moves by
+# 2^-8 of that one term, and a relu gate near zero may switch. So the limits
+# are those of such flips, each measured by this script on an H100 80GB HBM3
+# at 700 W with the cause beside it:
+# - forward, out/m/l on agreeing rows: VA_BF16_REL_TOL of max(|plain|, 1)
+#   element by element, one bf16 step (a flipped operand moves one term by
+#   2^-8 of itself; measured up to 9.8e-4), and VA_BF16_REL_L2 relative L2
+#   over all of them (the flips are rare; measured up to 6.6e-5): a weight
+#   rounded before s is folded into it, bf16(Wg2)·s in place of
+#   bf16(Wg2·s), moves every logit and fails this
+#   (tests/test_torch_port_vector_attention_bf16.py shows it on the CPU);
+# - backward, the edge kernel's staged tensors: VA_BF16_EDGE_TOL of
+#   max(|plain|, rms) element by element off relu flips (a few flipped
+#   operands in each of three chained products, each moving one term by
+#   2^-8 of itself; measured up to 1.7e-2) and VA_BF16_EDGE_L2 relative L2
+#   over each tensor (the flips are rare); relu flips at most
+#   VA_BF16_FLIP_SHARE of the elements, each at a value under
+#   VA_BF16_FLIP_MARGIN of the tensor's rms (a few bf16 steps of a term;
+#   measured up to 1.2e-7 of the elements at 5.8e-4 of the rms); the other
+#   kernels' sums against the plain sums of the staged tensors as in f32
+#   (VA_SUM_TOL: the same roundings of the same staged values; measured up
+#   to 3.1e-7), dkey and dval within one bf16 step of the larger more (both
+#   round an f32 sum to bf16); every output against the plain backward
+#   within VA_BF16_BWD_REL_L2 relative L2 (dq, dkey, dWg1 and dbg1 sum
+#   cotangents of both signs that cancel, so a flipped operand weighs more
+#   there; measured up to 1.2e-3).
+VA_BF16_REL_TOL = 2.0**-8
+VA_BF16_REL_L2 = 5e-4
+VA_BF16_EDGE_TOL = 5e-2
+VA_BF16_EDGE_L2 = 1e-3
+VA_BF16_FLIP_SHARE = 1e-5
+VA_BF16_FLIP_MARGIN = 1e-2
+VA_BF16_BWD_REL_L2 = 1e-2
 # the large-N slice: the shipped config's PointNet at --num_points 4096
 N_LARGE = 4096
 # min-dists (B, N, M) cases at B=64: the main path's, one the routing would
@@ -376,16 +435,16 @@ BN_GROUPS_SET = ("MODEL_CFG.BN_SEMANTICS", "per_replica", "MODEL_CFG.BN_GROUPS",
 GRL_LAMBDA = 0.7  # the card-vs-CPU loss's λ, well inside the loop's sine ramp
 # phase 5's A/B cells, sequential against stacked in turns in one process
 AB_CELLS = (("DGCNN", N_POINTS), ("PTran", N_POINTS), ("Pointnet", N_LARGE), ("DGCNN", N_LARGE))
-# The bf16 policy (PRECISION: bf16, DGCNN and PointNet): the EdgeConv
-# kernels' values_bf16 mode, instantiated in the same sources, as
-# (label, kernel name, source); the --set that turns it on; phase 5's cells
-# that run the f32 and the bf16 step in turns on one trainer.
+# The bf16 policy (PRECISION: bf16): the EdgeConv kernels' values_bf16 mode
+# (DGCNN and PointNet), instantiated in the same sources, as (label, kernel
+# name, source); the --set that turns it on; phase 5's cells that run the
+# f32 and the bf16 step in turns on one trainer.
 BF16_KERNELS = (("gather", "edgeconv_fwd_gather_kernel", "edgeconv_fwd"),
                 ("rows", "edgeconv_bwd_rows_kernel", "edgeconv_bwd"),
                 ("keys", "edgeconv_bwd_keys_kernel", "edgeconv_bwd"))
 BF16_SET = ("PRECISION", "bf16")
 BF16_CELLS = (("DGCNN", N_POINTS), ("DGCNN", N_LARGE), ("Pointnet", N_POINTS),
-              ("Pointnet", N_LARGE))
+              ("Pointnet", N_LARGE), ("PTran", N_POINTS))
 # bf16 on the card against bf16 on the CPU. Both round at the same points,
 # but their f32 sums (cuBLAS against the CPU's GEMMs, BN reductions) differ
 # in order, and where a sum lies near a bf16 rounding boundary the two
@@ -415,20 +474,41 @@ BF16_CELLS = (("DGCNN", N_POINTS), ("DGCNN", N_LARGE), ("Pointnet", N_POINTS),
 GATE_SHIFT = 3.0
 MAX_BF16_NOISE = 0.5
 ZERO_LEAF = 1e-4
+# PTran under bf16 takes those figures through four TransitionDowns and five
+# attention blocks, and there the two devices' bf16 runs drift apart until
+# they differ as two independent sets of roundings do, about √2·D: two runs
+# whose f32 sums differ in order round apart wherever a sum lies within that
+# difference of a rounding boundary, and each later rounding widens the gap
+# (a relative difference δ flips a share δ/2^-8 of the next roundings, each
+# by 2^-8), fastest at a BN output near its raised bias, where a bf16 step is
+# 1/64 of the signal (tests/test_torch_port_ptran_bf16.py measures it between
+# the JAX package and the port on the CPU: 2e-5 of the features' norm after
+# the first block, D after the fourth TransitionDown). So PTran's bf16
+# figures are held to BF16_SATURATED times the CPU's own distance, its
+# losses to one bf16 step (2^-8) where that is larger, and its logits'
+# argmax disagreements to BF16_SATURATED times the CPU's own, rounded up.
+BF16_SATURATED = {"PTran": math.sqrt(2.0)}
+BF16_SATURATED_LOSS = 2.0**-8
 
 
-def hmma_count(cuobjdump, library, kernel):
-    """HMMA (tensor-core) instructions in the SASS of every instance of
-    ``kernel`` (a substring of the mangled name) in ``library``."""
+def hmma_by_instance(cuobjdump, library, kernel):
+    """{mangled name: the HMMA opcodes in its SASS} for every instance of
+    ``kernel`` (a substring of the mangled name) in ``library``; an opcode
+    names its shape and types (``HMMA.1688.F32.TF32``,
+    ``HMMA.16816.F32.BF16``)."""
     sass = subprocess.run([cuobjdump, "-sass", str(library)], capture_output=True, text=True,
                           check=True, timeout=300).stdout
-    count, inside = 0, False
+    found, current = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
-            inside = kernel in line
-        elif inside and "HMMA" in line:
-            count += 1
-    return count
+            name = line.split("Function :", 1)[1].strip()
+            current = name if kernel in name else None
+            if current is not None:
+                found[current] = []
+        elif current is not None and "HMMA" in line:
+            found[current].append(next(w for w in line.replace(";", " ").split()
+                                       if w.startswith("HMMA")))
+    return found
 
 
 def sass_functions(cuobjdump, library):
@@ -651,14 +731,16 @@ def va_weight_l2_bytes(b, n, d, products):
     return clusters * products * d * d * 4
 
 
-def ops_bounds(nbytes, dd_flops, other_flops):
+def ops_bounds(nbytes, dd_flops, other_flops, bf16=False):
     """(bound_ms, bound_by, f32_ms): the larger of the bytes over HBM
     bandwidth and the operations' time. The D×D products run on the tensor
-    cores as 3×TF32 (three TF32 products each, at the TF32 peak) and the
-    rest in f32 outside them; ``f32_ms`` is the operations' time were all
-    of them f32 outside the tensor cores, as the kernels ran before."""
+    cores as 3×TF32 (three TF32 products each, at the TF32 peak), or with
+    ``bf16`` (the bf16 mode) as one bf16 product each at the bf16 peak, and
+    the rest in f32 outside them; ``f32_ms`` is the operations' time were
+    all of them f32 outside the tensor cores, as the kernels ran before."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (3.0 * dd_flops / TF32_FLOP_PER_S + other_flops / F32_FLOP_PER_S) * 1e3
+    dd_ms = dd_flops / BF16_FLOP_PER_S if bf16 else 3.0 * dd_flops / TF32_FLOP_PER_S
+    t_ops = (dd_ms + other_flops / F32_FLOP_PER_S) * 1e3
     f32_ms = (dd_flops + other_flops) / F32_FLOP_PER_S * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), f32_ms
 
@@ -666,26 +748,31 @@ def ops_bounds(nbytes, dd_flops, other_flops):
 def va_bound(args, k):
     """(bound_ms, bound_by, bytes, flops, f32_bound_ms) of one
     vector-attention call: the inputs (xyz, q, key, val, weights) read once
-    and out, m, l, idx written once, against B·N·(2·N·C + k·(2·C·D + 6·D²))
-    operations: the distances, the C->D layer and the three D×D products
-    per edge, these on the tensor cores (``ops_bounds``)."""
+    at their size (bf16 q, key, val at 2 bytes) and out, m, l, idx written
+    once, against B·N·(2·N·C + k·(2·C·D + 6·D²)) operations: the distances,
+    the C->D layer and the three D×D products per edge, these on the tensor
+    cores (``ops_bounds``; bf16 ones for bf16 key and val)."""
     xyz, q = args[0], args[1]
     Bq, n, c = xyz.shape
     d = q.shape[-1]
-    nbytes = sum(t.numel() * 4 for t in args) + 3 * Bq * n * d * 4 + Bq * n * k * 4
+    nbytes = (sum(t.numel() * t.element_size() for t in args) + 3 * Bq * n * d * 4
+              + Bq * n * k * 4)
     dd_flops = float(Bq) * n * k * 6.0 * d * d
     other = float(Bq) * n * (2.0 * n * c + k * 2.0 * c * d)
-    b_ms, b_by, f32_ms = ops_bounds(nbytes, dd_flops, other)
+    b_ms, b_by, f32_ms = ops_bounds(nbytes, dd_flops, other, args[2].dtype == torch.bfloat16)
     return b_ms, b_by, nbytes, dd_flops + other, max(f32_ms, nbytes / HBM_BYTES_PER_S * 1e3)
 
 
-def compare_va(name, got, want, require_exact_idx=False):
+def compare_va(name, got, want, require_exact_idx=False, bf16=False):
     """Vector-attention kernel outputs against the plain version's; returns
-    the max |diff| of out, m and l on rows whose neighbour sets agree."""
+    the max |diff| of out, m and l on rows whose neighbour sets agree. With
+    ``bf16`` (the bf16 mode) the limits are VA_BF16_REL_TOL element by
+    element and VA_BF16_REL_L2 over the agreeing rows."""
     g_idx, w_idx = got[3].long(), want[3].long()
     same_set = (torch.sort(g_idx, -1).values == torch.sort(w_idx, -1).values).all(-1)
     share = same_set.float().mean().item()
     ordered = (g_idx == w_idx).all(-1).float().mean().item()
+    tol = VA_BF16_REL_TOL if bf16 else VA_REL_TOL
     max_err, parts = 0.0, []
     for label, g, w in zip(("out", "m", "l"), got[:3], want[:3]):
         if not torch.isfinite(g).all():
@@ -695,8 +782,14 @@ def compare_va(name, got, want, require_exact_idx=False):
         err = d.max().item() if d.numel() else 0.0
         max_err = max(max_err, err)
         parts.append(f"{label} {err:.3e} (rel {rel:.3e})")
-        if rel > VA_REL_TOL:
-            fail(f"{name}: {label} differs by {rel:.3e} relative on agreeing rows (> {VA_REL_TOL})")
+        if rel > tol:
+            fail(f"{name}: {label} differs by {rel:.3e} relative on agreeing rows (> {tol})")
+        if bf16 and d.numel():
+            l2 = (d.double().norm() / w[same_set].double().norm().clamp(min=1e-30)).item()
+            parts[-1] = parts[-1][:-1] + f", rel L2 {l2:.3e})"
+            if l2 > VA_BF16_REL_L2:
+                fail(f"{name}: {label} differs by {l2:.3e} relative L2 on agreeing rows "
+                     f"(> {VA_BF16_REL_L2})")
     print(f"  {name}: sets agree on {share:.6f} of rows, order on {ordered:.6f}; "
           f"max |diff| on agreeing rows: {', '.join(parts)}", flush=True)
     if require_exact_idx and not torch.equal(g_idx, w_idx):
@@ -709,20 +802,22 @@ def compare_va(name, got, want, require_exact_idx=False):
 def va_bwd_bound(args, k):
     """(bound_ms, bound_by, bytes, flops, f32_bound_ms) of one
     vector-attention backward: the forward's inputs, idx, m, l, out and dout
-    read once and the eleven gradients written once, against B·N·k·(18·D² +
-    4·C·D) operations: per edge three D×D products to replay the forward,
-    three back through the chain and three outer products for the weight
-    gradients, on the tensor cores, and the C->D layer and its gradient
+    read once and the eleven gradients written once (dq f32; dkey and dval
+    at key's size), against B·N·k·(18·D² + 4·C·D) operations: per edge
+    three D×D products to replay the forward, three back through the chain
+    and three outer products for the weight gradients, on the tensor cores
+    (bf16 ones for bf16 key and val), and the C->D layer and its gradient
     (``ops_bounds``)."""
     xyz, q = args[0], args[1]
     Bq, n, c = xyz.shape
     d = q.shape[-1]
+    kv = args[2].element_size()
     weights = sum(t.numel() * 4 for t in args[4:])
-    nbytes = (sum(t.numel() * 4 for t in args[:4]) + weights + Bq * n * k * 4
-              + 4 * Bq * n * d * 4 + 3 * Bq * n * d * 4 + weights)
+    nbytes = (sum(t.numel() * t.element_size() for t in args[:4]) + weights + Bq * n * k * 4
+              + 4 * Bq * n * d * 4 + Bq * n * d * (4 + 2 * kv) + weights)
     dd_flops = float(Bq) * n * k * 18.0 * d * d
     other = float(Bq) * n * k * 4.0 * c * d
-    b_ms, b_by, f32_ms = ops_bounds(nbytes, dd_flops, other)
+    b_ms, b_by, f32_ms = ops_bounds(nbytes, dd_flops, other, args[2].dtype == torch.bfloat16)
     return b_ms, b_by, nbytes, dd_flops + other, max(f32_ms, nbytes / HBM_BYTES_PER_S * 1e3)
 
 
@@ -740,8 +835,13 @@ def compare_va_bwd(name, args, k, gen):
     against ``edge_terms``; dq, dkey, dval and the weight gradients against
     ``reduce_edge_terms`` of those staged tensors; then every output against
     the plain backward. Two calls must agree bit for bit. Returns the
-    largest |diff| against the plain sums of the staged tensors."""
+    largest |diff| against the plain sums of the staged tensors. bf16 key
+    and val run the bf16 mode, held to the VA_BF16_* limits."""
     va = vector_attention
+    bf16 = args[2].dtype == torch.bfloat16
+    edge_tol, flip_share_tol, flip_margin, l2_tol = (
+        (VA_BF16_EDGE_TOL, VA_BF16_FLIP_SHARE, VA_BF16_FLIP_MARGIN, VA_BF16_BWD_REL_L2) if bf16
+        else (VA_EDGE_TOL, VA_MAX_FLIP_SHARE, VA_FLIP_MARGIN, VA_BWD_REL_L2))
     saved = va_bwd_saved(args, k, gen)
     got = va.vector_attention_bwd(*args, k, *saved)
     again = va.vector_attention_bwd(*args, k, *saved)
@@ -760,13 +860,18 @@ def compare_va_bwd(name, args, k, gen):
     plain_rows = [[], [], []]
     edge_err = dict.fromkeys(("delta", "relu_d", "att_in", "relu_g", "dvpos", "dzs", "dh_g",
                               "datt", "dpos", "dh_d"), 0.0)
+    edge_sq = {t: [0.0, 0.0] for t in edge_err}  # squared norms of the differences and of plain
     sum_err = dict.fromkeys(outputs, 0.0)
     max_abs, flips, flip_value, elements = 0.0, 0, 0.0, 0
 
     def held(label, g, w, scale):
         nonlocal max_abs
+        g, w, scale = g.double(), w.double(), scale.double()
         diff = (g - w).abs()
         max_abs = max(max_abs, diff.max().item())
+        if bf16 and label in ("dkey", "dval"):  # both round an f32 sum to bf16: one step apart
+            _, e = torch.frexp(torch.maximum(g.abs(), w.abs()))
+            diff = torch.clamp(diff - torch.ldexp(torch.ones_like(diff), e - 8), min=0.0)
         sum_err[label] = max(sum_err[label],
                              (diff / torch.clamp(scale, min=scale.mean().item())).max().item())
 
@@ -784,6 +889,8 @@ def compare_va_bwd(name, args, k, gen):
                 fail(f"{name}: a slot past k holds a cotangent of {past_k:.3e}, not zero")
         own = {t: v[:, :, :k] for t, v in staged.items()}
         plain = va.edge_terms(*cargs, *csaved)
+        if bf16:  # the edge kernel stages delta as the bf16 mode's products take it
+            plain["delta"] = va.round_bf16(plain["delta"])
         # relus that switch differently, and the edges they reach
         flip_g = (own["relu_g"] > 0) != (plain["relu_g"] > 0)
         flip_d = (own["relu_d"] > 0) != (plain["relu_d"] > 0)
@@ -791,24 +898,30 @@ def compare_va_bwd(name, args, k, gen):
             flips += int(flip.sum())
             elements += flip.numel()
             if flip.any():
-                flip_value = max(flip_value,
-                                 torch.maximum(own[t], plain[t])[flip].max().item())
+                value = torch.maximum(own[t], plain[t])[flip].max().item()
+                if bf16:  # relative to the tensor's rms
+                    value /= plain[t].square().mean().sqrt().item()
+                flip_value = max(flip_value, value)
         clean = {"dh_g": ~flip_g.any(-1), "dh_d": ~(flip_g.any(-1) | flip_d.any(-1))}
         clean["datt"] = clean["dpos"] = clean["dh_g"]
         for t in edge_err:
             rel = (own[t] - plain[t]).abs() / torch.clamp(plain[t].abs(),
                                                           min=plain[t].square().mean().sqrt().item())
+            keep = clean.get(t, slice(None))
             if t in clean:
-                rel = rel[clean[t]]
+                rel = rel[keep]
             if rel.numel():
                 edge_err[t] = max(edge_err[t], rel.max().item())
+                edge_sq[t][0] += (own[t] - plain[t])[keep].double().square().sum().item()
+                edge_sq[t][1] += plain[t][keep].double().square().sum().item()
         del rel, flip_g, flip_d, clean
         idx_c = csaved[0]
-        sums = va.reduce_edge_terms(own, idx_c)
-        scales = [s_.abs() for s_ in va.reduce_edge_terms({t: v.abs() for t, v in own.items()}, idx_c)]
+        sums = va.reduce_edge_terms(own, idx_c, bf16)
+        scales = [s_.abs() for s_ in va.reduce_edge_terms({t: v.abs() for t, v in own.items()},
+                                                          idx_c, bf16)]
         for i in range(3):
             held(outputs[i], got[i][c], sums[i], scales[i])
-        plain_sums = va.reduce_edge_terms(plain, idx_c)
+        plain_sums = va.reduce_edge_terms(plain, idx_c, bf16)
         for i in range(3):
             plain_rows[i].append(plain_sums[i])
         for i in range(len(own_w)):
@@ -824,25 +937,34 @@ def compare_va_bwd(name, args, k, gen):
         ref = scale_w[i - 3] if label == "dbg2" else w
         l2[label] = ((got[i].double() - w).norm() / ref.double().norm().clamp(min=1e-30)).item()
     flip_share = flips / max(elements, 1)
+    edge_l2 = {t: math.sqrt(d / max(p, 1e-300)) for t, (d, p) in edge_sq.items()}
     print(f"  {name}: staged edge tensors within {max(edge_err.values()):.3e} "
-          f"(worst {max(edge_err, key=edge_err.get)}), {flips} relu flips ({flip_share:.2e} of "
+          f"(worst {max(edge_err, key=edge_err.get)}; relative L2 {max(edge_l2.values()):.3e}, "
+          f"worst {max(edge_l2, key=edge_l2.get)}), {flips} relu flips ({flip_share:.2e} of "
           f"the elements, values up to {flip_value:.2e}); sums of the staged tensors within "
           f"{max(sum_err.values()):.3e} of their terms (worst {max(sum_err, key=sum_err.get)}, "
           f"max |diff| {max_abs:.3e}); against the plain backward within {max(l2.values()):.3e} "
           f"relative L2 (worst {max(l2, key=l2.get)}); two calls bit-identical", flush=True)
     for t, err in edge_err.items():
-        if err > VA_EDGE_TOL:
-            fail(f"{name}: staged {t} differs by {err:.3e} of max(|plain|, rms) (> {VA_EDGE_TOL})")
-    if flip_share > VA_MAX_FLIP_SHARE or flip_value > VA_FLIP_MARGIN:
+        if err > edge_tol:
+            fail(f"{name}: staged {t} differs by {err:.3e} of max(|plain|, rms) (> {edge_tol})")
+        if bf16 and edge_l2[t] > VA_BF16_EDGE_L2:
+            fail(f"{name}: staged {t} differs by {edge_l2[t]:.3e} relative L2 "
+                 f"(> {VA_BF16_EDGE_L2})")
+    if flip_share > flip_share_tol or flip_value > flip_margin:
         fail(f"{name}: {flips} relu flips ({flip_share:.2e} of the elements) at values up to "
-             f"{flip_value:.2e}")
+             f"{flip_value:.2e}" + (" of the rms" if bf16 else ""))
     for label, err in sum_err.items():
         if err > VA_SUM_TOL:
             fail(f"{name}: {label} differs by {err:.3e} of its terms' magnitude (> {VA_SUM_TOL})")
     for label, err in l2.items():
-        if err > VA_BWD_REL_L2:
+        if err > l2_tol:
             fail(f"{name}: {label} differs from the plain backward by {err:.3e} relative L2 "
-                 f"(> {VA_BWD_REL_L2})")
+                 f"(> {l2_tol})")
+    if bf16:
+        for label, g in zip(outputs[1:3], got[1:3]):
+            if g.dtype != torch.bfloat16:
+                fail(f"{name}: {label} is {g.dtype}, not bf16 as key and val")
     return max_abs
 
 
@@ -1328,30 +1450,33 @@ class _With:
 def card_maxima(device, calls):
     """Around one ``_loss`` of ``card_against_cpu``: every max over the
     points (``torch.amax`` over dim 1 in the DGCNN, PointNet and T-Net
-    modules) takes its values at one argmax, the first on the card, noted
-    into ``calls``, and the card's on the CPU, call by call. One index, not
+    modules) and over the neighbours (dim 2 in PTran's TransitionDowns)
+    takes its values at one argmax, the first on the card, noted into
+    ``calls``, and the card's on the CPU, call by call. One index, not
     ``amax``'s even split of the gradient over exact ties, which bf16
     makes common among 4096 points."""
-    from sug_tpu_torch.models import dgcnn, layers, pointnet
+    from sug_tpu_torch.models import dgcnn, layers, pointnet, ptran
 
     replay = iter(calls)
 
-    def amax(x, dim):
-        if dim != 1:
-            return torch.amax(x, dim=dim)
-        if device == "cuda":
-            idx = torch.argmax(x.detach(), dim=1, keepdim=True)
-            calls.append(idx.cpu())
-        else:
-            idx = next(replay)
-            if idx.shape != (x.shape[0], 1) + tuple(x.shape[2:]):
-                fail(f"card_maxima: a max over the points of shape {tuple(x.shape)} against "
-                     f"the card's {tuple(idx.shape)}")
-        return torch.gather(x, 1, idx).squeeze(1)
+    def over(axis):
+        def amax(x, dim):
+            if dim != axis:
+                return torch.amax(x, dim=dim)
+            if device == "cuda":
+                idx = torch.argmax(x.detach(), dim=axis, keepdim=True)
+                calls.append(idx.cpu())
+            else:
+                idx = next(replay)
+                if idx.shape != x.shape[:axis] + (1,) + x.shape[axis + 1:]:
+                    fail(f"card_maxima: a max over dim {axis} of shape {tuple(x.shape)} against "
+                         f"the card's {tuple(idx.shape)}")
+            return torch.gather(x, axis, idx).squeeze(axis)
+        return amax
 
-    modules = (dgcnn, layers, pointnet)
-    for m in modules:
-        m.torch = _With(torch, amax=amax)
+    modules = {dgcnn: 1, layers: 1, pointnet: 1, ptran: 2}
+    for m, axis in modules.items():
+        m.torch = _With(torch, amax=over(axis))
     try:
         yield
     finally:
@@ -1431,6 +1556,7 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None,
     raw_points = raw_points or num_points
     padded = raw_points < num_points
     tag = f"{model_name} ({variant})" if variant else model_name
+    saturated = BF16_SATURATED.get(model_name, 1.0) if bf16 else 1.0
     pts, labels = make_synthetic_pointda(num_per_class=max(2, -(-batch_size // 5)),
                                          num_points=raw_points, seed=7)
     ds = PointCloudDataset("modelnet", pts, labels, num_points=num_points, model=model_name)
@@ -1546,7 +1672,9 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None,
                 if noise >= MAX_BF16_NOISE:
                     fail(f"{tag}: {k} (mmd {mmd_on}) moves by {noise:.3e} between bf16 and f32 "
                          f"on the CPU (>= {MAX_BF16_NOISE}): no test")
-                limit = max(limit, noise)
+                limit = max(limit, saturated * noise)
+                if model_name in BF16_SATURATED:
+                    limit = max(limit, BF16_SATURATED_LOSS)
             if rel > limit:
                 fail(f"{tag} card vs CPU: {k} (mmd {mmd_on}) {got} vs {want}, {rel:.3e} relative "
                      f"(> {limit:.3e})")
@@ -1575,7 +1703,7 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None,
     print(f"{what}; gradients within {rel[name]:.3e} relative L2 (worst {name})", flush=True)
     grad_limit = MAX_GRAD_REL_L2
     if bf16:
-        check_bf16_grads(tag, runs["cuda"][False][1], g_cpu, runs["cpu f32"][False][1])
+        check_bf16_grads(tag, runs["cuda"][False][1], g_cpu, runs["cpu f32"][False][1], saturated)
         rel = {}  # each leaf held to its own D above
     if padded:
         card_all = gap(runs["cuda"][False][1], masked=False)
@@ -1593,11 +1721,11 @@ def card_against_cpu(cfg, rng, model_name, num_points=N_POINTS, raw_points=None,
              f"(> {grad_limit:.3e})")
 
 
-def check_bf16_grads(tag, card, cpu, cpu_f32):
+def check_bf16_grads(tag, card, cpu, cpu_f32, factor=1.0):
     """bf16 gradients (name -> float64 CPU tensor) of the card against the
-    CPU's, held to the CPU's own bf16-vs-f32 distance D: all leaves as one
-    vector, then each leaf against its own D, as the comment at GATE_SHIFT
-    says."""
+    CPU's, held to the CPU's own bf16-vs-f32 distance D (times ``factor``,
+    BF16_SATURATED's for PTran): all leaves as one vector, then each leaf
+    against its own D, as the comment at GATE_SHIFT says."""
     def vector(grads):
         return torch.cat([grads[n].flatten() for n in sorted(cpu)])
 
@@ -1617,7 +1745,7 @@ def check_bf16_grads(tag, card, cpu, cpu_f32):
         got, d = ((g[n] - cpu[n]).norm().item() / scale for g in (card, cpu_f32))
         if d >= MAX_BF16_NOISE:
             over.append(f"{n} moves by {d:.3e} between bf16 and f32 on the CPU (no test)")
-        elif got > max(d, MAX_GRAD_REL_L2):
+        elif got > max(factor * d, MAX_GRAD_REL_L2):
             over.append(f"{n} differs by {got:.3e} (its bf16-vs-f32 distance {d:.3e})")
         worst = max(worst, (got / max(d, MAX_GRAD_REL_L2), got, n, d))
         loudest = max(loudest, (d, n))
@@ -1627,18 +1755,19 @@ def check_bf16_grads(tag, card, cpu, cpu_f32):
           f"{loudest[1]}); zero to rounding on both devices: {len(zero)} leaves", flush=True)
     if whole_d >= MAX_BF16_NOISE:
         over.append(f"all leaves move by {whole_d:.3e} between bf16 and f32 on the CPU (no test)")
-    elif whole > max(whole_d, MAX_GRAD_REL_L2):
+    elif whole > max(factor * whole_d, MAX_GRAD_REL_L2):
         over.append(f"all leaves as one vector differ by {whole:.3e} (D {whole_d:.3e})")
     if over:
         fail(f"{tag} bf16 card vs CPU, relative L2: {len(over)} outside their limits: "
              + "; ".join(over))
 
 
-def check_logits(what, card, cpu, preds, cpu_f32=None):
+def check_logits(what, card, cpu, preds, cpu_f32=None, factor=1.0):
     """Logits of the same clouds on the card and on the CPU plain path, and
     ``infer``'s predictions for them. Under bf16, ``cpu_f32`` are the CPU's
-    f32 logits: the limits are then the CPU's own bf16-vs-f32 gap where that
-    exceeds the f32 ones."""
+    f32 logits: the limits are then the CPU's own bf16-vs-f32 gap (times
+    ``factor``, BF16_SATURATED's for PTran) where that exceeds the f32
+    ones."""
     diff = (card - cpu).abs()
     disagree = int((card.argmax(-1) != cpu.argmax(-1)).sum())
     disagree_infer = int((torch.from_numpy(preds[:len(cpu)]) != cpu.argmax(-1)).sum())
@@ -1646,8 +1775,8 @@ def check_logits(what, card, cpu, preds, cpu_f32=None):
     if cpu_f32 is not None:
         gap = (cpu - cpu_f32).abs().max().item()
         gap_disagree = int((cpu.argmax(-1) != cpu_f32.argmax(-1)).sum())
-        max_diff = max(max_diff, gap)
-        max_disagree = max(max_disagree, gap_disagree)
+        max_diff = max(max_diff, factor * gap)
+        max_disagree = math.ceil(factor * max(max_disagree, gap_disagree))
         floor = (f"; the CPU's bf16 against its f32: max |diff| {gap:.3e}, argmax disagrees on "
                  f"{gap_disagree}; limits {max_diff:.3e} and {max_disagree}")
     print(f"{what} logits card vs CPU ({len(cpu)} clouds, |logit| up to {cpu.abs().max():.3f}): "
@@ -1741,7 +1870,7 @@ def serving_run(infer, model_name, seed, rng, dev, n_clouds, num_points=N_POINTS
             cpu_f32 = ensemble_logits(infer.load_model(model_name, ckpt, cpu_dev, num_points),
                                       first) if bf16 else None
     check_logits(f"{model_name} N={num_points}" + (" bf16" if bf16 else ""), card, cpu, preds,
-                 cpu_f32)
+                 cpu_f32, BF16_SATURATED.get(model_name, 1.0) if bf16 else 1.0)
     return launches, model, batch
 
 
@@ -1966,6 +2095,114 @@ def time_edgeconv_bf16(dev, fwd_entry, bwd_entry):
     del args, bargs
 
 
+def va_bf16(args):
+    """A vector-attention call's inputs as the bf16 mode takes them from
+    PTran's bf16 projections: q, key and val rounded to bf16."""
+    return [a.to(torch.bfloat16) if i in (1, 2, 3) else a for i, a in enumerate(args)]
+
+
+def check_va(gen, dev, lat, lat_r, bf16=False):
+    """The vector-attention kernels against their plain versions, in f32 or
+    (``bf16``) in the bf16 mode of the bf16 policy (q, key and val in bf16):
+    the forward at the five PTran levels at N=1024 and the ragged N=1000, at
+    D=128 and on the lattice ``lat``'s exact ties (duplicates at 0, 64, 65:
+    every distance exact, so the indices must match index for index), two
+    launches bit-identical; the backward at the five N=1024 levels, at the
+    ragged levels at D=128 and on the lattice ``lat_r``, whose duplicate
+    points are each other's neighbours (``compare_va_bwd``). Returns the
+    max |diff| of the forward and of the backward."""
+    va = vector_attention
+    t0 = time.perf_counter()
+    if bf16:
+        print(f"vector-attention kernels in the bf16 mode vs their bf16 plain versions "
+              f"(tolerances: out/m/l on agreeing rows {VA_BF16_REL_TOL:.3e} of max(|plain|,1) and "
+              f"{VA_BF16_REL_L2} relative L2; backward staged tensors {VA_BF16_EDGE_TOL} of "
+              f"max(|plain|, rms) and {VA_BF16_EDGE_L2} relative L2 off relu flips, at most "
+              f"{VA_BF16_FLIP_SHARE} of the elements flipped at under {VA_BF16_FLIP_MARGIN} of the "
+              f"rms; sums {VA_SUM_TOL} of their terms, dkey and dval one bf16 step more; end to "
+              f"end {VA_BF16_BWD_REL_L2} relative L2; two launches bit-identical):", flush=True)
+    else:
+        print(f"vector-attention kernel vs plain (tolerance: sets agree on >= "
+              f"{MIN_SET_AGREEMENT}, out/m/l on agreeing rows to {VA_REL_TOL} rel of "
+              "max(|plain|,1); two launches bit-identical):", flush=True)
+    mode = va_bf16 if bf16 else list
+    tag = " bf16" if bf16 else ""
+    cases = [(f"{name} N={n} k={k} D={D_MODEL}", va_inputs(n, gen, dev), k, False)
+             for name, n, k in VA_SHAPES + VA_RAGGED]
+    cases.append((f"D=128 N={N_POINTS} k=16", va_inputs(N_POINTS, gen, dev, d=128), 16, False))
+    for n, k in ((N_POINTS, 16), (RAGGED_N, 16), (15, 15)):
+        cases.append((f"tie N={n} k={k}", va_inputs(n, gen, dev, xyz=lat[:, :n].contiguous()), k,
+                      True))
+    fwd_err = 0.0
+    for name, args, k, exact in cases:
+        args = mode(args)
+        got = va.vector_attention_fwd(*args, k)
+        again = va.vector_attention_fwd(*args, k)
+        want = va.vector_attention_fwd_plain(*args, k)
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            fail(f"{name}{tag}: two forward launches on the same inputs differ")
+        fwd_err = max(fwd_err, compare_va(name + tag, got, want, exact, bf16=bf16))
+    del cases, args, got, again, want
+    if not bf16:
+        print("vector-attention backward kernels vs plain (tolerances: staged edge tensors "
+              f"{VA_EDGE_TOL} of max(|plain|, rms) off relu flips; sums {VA_SUM_TOL} of max(sum "
+              f"of the terms' magnitudes, its mean); end to end {VA_BWD_REL_L2} relative L2; two "
+              "calls bit-identical):", flush=True)
+    bwd_err = 0.0
+    cases = [(f"{name} N={n} k={k} D={D_MODEL}", n, k, D_MODEL, None) for name, n, k in VA_SHAPES]
+    cases += [(f"{name} N={n} k={k} D=128", n, k, 128, None) for name, n, k in VA_RAGGED]
+    cases.append((f"tie N={RAGGED_N} k=16 D=128", RAGGED_N, 16, 128, lat_r))
+    for name, n, k, d, xyz in cases:
+        args = mode(va_inputs(n, gen, dev, d=d, xyz=xyz))
+        bwd_err = max(bwd_err, compare_va_bwd(name + tag, args, k, gen))
+    del args
+    print(f"vector-attention checks{tag}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return fwd_err, bwd_err
+
+
+def time_va_bf16(dev, fwd_entry, bwd_entry):
+    """Times the vector-attention kernels' bf16 mode at the five PTran
+    levels at B=64, from a generator of their own: the forward and the
+    backward (fed one forward launch), each beside its bound (the D×D
+    products at the bf16 peak, q, key and val at 2 bytes), its bf16 plain
+    version, and the backward split by kernel; adds them to the entries."""
+    va = vector_attention
+    own = torch.Generator(device=dev).manual_seed(15)
+    for name, n, k in VA_SHAPES:
+        args = va_bf16(va_inputs(n, own, dev))
+        ms = timed_ms(lambda: va.vector_attention_fwd(*args, k), iters=5)
+        plain_ms = timed_ms(lambda: va.vector_attention_fwd_plain(*args, k), iters=3)
+        b_ms, b_by, nbytes, flops, f32_ms = va_bound(args, k)
+        print(f"  vector attention bf16 {name} (B={B}, N={n}, D={D_MODEL}, k={k}): kernel "
+              f"{ms:.4f} ms ({flops / ms / 1e9:.2f} TFLOP/s, {b_ms / ms:.1%} of the bf16 bound), "
+              f"plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by} with bf16 tensor cores "
+              f"({f32_ms:.4f} ms in f32 outside them; {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP)", flush=True)
+        saved = va_bwd_saved(args, k, own)
+        bms = timed_ms(lambda: va.vector_attention_bwd(*args, k, *saved), iters=3, warmup=1)
+        bplain_ms = timed_ms(lambda: va.vector_attention_bwd_plain(*args, k, *saved), iters=2,
+                             warmup=1)
+        bb_ms, bb_by, bbytes, bflops, bf32_ms = va_bwd_bound(args, k)
+        print(f"  vector-attention backward bf16 {name}: kernels {bms:.4f} ms "
+              f"({bflops / bms / 1e9:.2f} TFLOP/s, {bb_ms / bms:.1%} of the bf16 bound), plain "
+              f"{bplain_ms:.4f} ms, bound {bb_ms:.4f} ms by {bb_by} with bf16 tensor cores "
+              f"({bf32_ms:.4f} ms in f32 outside them; {bbytes / 1e6:.1f} MB, "
+              f"{bflops / 1e9:.2f} GFLOP)", flush=True)
+        profile_device(lambda: va.vector_attention_bwd(*args, k, *saved),
+                       f"bf16 vector-attention backward, {name}", bms, iters=1)
+        for entry, vals, by in ((fwd_entry, (ms, plain_ms, b_ms), b_by),
+                                (bwd_entry, (bms, bplain_ms, bb_ms), bb_by)):
+            entry["shapes"].append({"name": name, **dict(zip(("ms", "plain_ms", "bound_ms"), vals)),
+                                    "bound_by": by})
+            for key, val in zip(("ms", "plain_ms", "bound_ms"), vals):
+                entry[key] += val
+            if by != "operations":
+                entry["bound_by"] = "bytes"
+        del saved
+    del args
+
+
 def time_edgeconv_fwd(gen, dev, entry):
     """Times the forward (one call, its two kernels) at the five N=1024
     shapes at B=64 beside its bound and the plain version, and adds them to
@@ -2100,11 +2337,23 @@ def main() -> None:
     if not os.path.exists(cuobjdump):
         fail(f"{cuobjdump} not found: the tensor-core kernels' SASS cannot be checked")
     built = dict(zip(sources, builds))
+    # every instance on the tensor cores: the bf16 ones (the vector attention's
+    # bf16 mode) with bf16 HMMA and no TF32 one, the f32 ones the reverse
     for kernel, source in TENSOR_CORE_KERNELS:
-        n_hmma = hmma_count(cuobjdump, built[source].path, kernel)
-        print(f"  sass: {kernel} ({source}.cu): {n_hmma} HMMA instructions", flush=True)
-        if n_hmma == 0:
-            fail(f"{kernel}: no HMMA instruction in its SASS: not on the tensor cores")
+        instances = hmma_by_instance(cuobjdump, built[source].path, kernel)
+        print(f"  sass: {kernel} ({source}.cu): {sum(map(len, instances.values()))} HMMA "
+              "instructions", flush=True)
+        if {VA_BF16_MARKERS[kernel] in fn for fn in instances} != {True, False}:
+            fail(f"{kernel}: expected f32 and bf16 instances in the SASS, found {list(instances)}")
+        for fn, ops in instances.items():
+            is_bf16 = VA_BF16_MARKERS[kernel] in fn
+            n_bf16 = sum(".BF16" in op for op in ops)
+            n_tf32 = sum(".TF32" in op for op in ops)
+            print(f"  sass: {kernel} {'bf16' if is_bf16 else 'f32'} instance ({fn[:60]}...): "
+                  f"{n_bf16} bf16 HMMA, {n_tf32} TF32 HMMA ({sorted(set(ops))})", flush=True)
+            if (n_bf16 == 0 or n_tf32) if is_bf16 else (n_tf32 == 0 or n_bf16):
+                fail(f"{kernel}: the {'bf16' if is_bf16 else 'f32'} instance {fn} holds {n_bf16} "
+                     f"bf16 and {n_tf32} TF32 HMMA")
     # the values_bf16 instances of the EdgeConv gather, rows and keys kernels
     functions = {src: sass_functions(cuobjdump, built[src].path)
                  for src in {source for _, _, source in BF16_KERNELS}}
@@ -2131,37 +2380,10 @@ def main() -> None:
     bwd_max_abs_err = check_edgeconv_bwd(gen, dev, lat, lat_r)
     bf16_max_abs_err, bf16_bwd_max_abs_err = check_edgeconv_bf16(dev)
 
-    print(f"vector-attention kernel vs plain (tolerance: sets agree on >= {MIN_SET_AGREEMENT}, "
-          f"out/m/l on agreeing rows to {VA_REL_TOL} rel of max(|plain|,1)):", flush=True)
-    va_max_abs_err = 0.0
-    cases = [(f"{name} N={n} k={k} D={D_MODEL}", va_inputs(n, gen, dev), k, False)
-             for name, n, k in VA_SHAPES + VA_RAGGED]
-    cases.append((f"D=128 N={N_POINTS} k=16", va_inputs(N_POINTS, gen, dev, d=128), 16, False))
-    # exact ties: the lattice above (duplicates at 0, 64, 65), every distance
-    # exact, so the indices must match index for index
-    for n, k in ((N_POINTS, 16), (RAGGED_N, 16), (15, 15)):
-        xyz = lat[:, :n].contiguous()
-        cases.append((f"tie N={n} k={k}", va_inputs(n, gen, dev, xyz=xyz), k, True))
-    for name, args, k, exact in cases:
-        got = vector_attention.vector_attention_fwd(*args, k)
-        want = vector_attention.vector_attention_fwd_plain(*args, k)
-        torch.cuda.synchronize()
-        va_max_abs_err = max(va_max_abs_err, compare_va(name, got, want, require_exact_idx=exact))
-    del cases, args, got, want
-
-    print("vector-attention backward kernels vs plain (tolerances: staged edge tensors "
-          f"{VA_EDGE_TOL} of max(|plain|, rms) off relu flips; sums {VA_SUM_TOL} of max(sum of the "
-          f"terms' magnitudes, its mean); end to end {VA_BWD_REL_L2} relative L2; two calls "
-          "bit-identical):", flush=True)
-    va_bwd_max_abs_err = 0.0
-    cases = [(f"{name} N={n} k={k} D={D_MODEL}", n, k, D_MODEL, None) for name, n, k in VA_SHAPES]
-    cases += [(f"{name} N={n} k={k} D=128", n, k, 128, None) for name, n, k in VA_RAGGED]
-    # the lattice above: duplicate points (0, 64, 65) are each other's neighbours
-    cases.append((f"tie N={RAGGED_N} k=16 D=128", RAGGED_N, 16, 128, lat_r))
-    for name, n, k, d, xyz in cases:
-        args = va_inputs(n, gen, dev, d=d, xyz=xyz)
-        va_bwd_max_abs_err = max(va_bwd_max_abs_err, compare_va_bwd(name, args, k, gen))
-    del cases, args
+    va_max_abs_err, va_bwd_max_abs_err = check_va(gen, dev, lat, lat_r)
+    # the bf16 mode, from a generator of its own, so the later draws stay as they were
+    va_bf16_max_abs_err, va_bwd_bf16_max_abs_err = check_va(
+        torch.Generator(device=dev).manual_seed(14), dev, lat, lat_r, bf16=True)
 
     print(f"min-dists kernel vs plain at B={B} (tolerance: each min to {MIN_DIST_REL} of "
           "max(|q|² + max |s|², 1); the chamfer of two launches to twice that of the largest "
@@ -2247,37 +2469,28 @@ def main() -> None:
     _, grouped_cfg = parser_config(["--cfg", YAML, "--set", "Model", "DGCNN", *BN_GROUPS_SET])
     card_against_cpu(grouped_cfg, rng, "DGCNN", variant="BN groups 2", replay=True)
 
-    # 4l. the bf16 policy, DGCNN and PointNet: training through the front door
-    # with --set PRECISION bf16 (DGCNN at 1024 points, PointNet at 4096, the
+    # 4l. the bf16 policy: training through the front door with --set
+    # PRECISION bf16 (DGCNN and PTran at 1024 points, PointNet at 4096, the
     # shipped config), then --resume; serving under SUG_PRECISION=bf16; one
-    # bf16 DG loss per model on the card against the CPU; PTran refused
+    # bf16 DG loss per model on the card against the CPU
     t_bf16 = time.perf_counter()
     bf16_launches = dict.fromkeys(COUNTERS, 0)
-    for model_name, n in (("DGCNN", N_POINTS), ("Pointnet", N_LARGE)):
-        got, _ = train_and_resume(train_dg_single_gpu.main, rng16, model_name, n, sets=BF16_SET)
+    for model_name, n in (("DGCNN", N_POINTS), ("Pointnet", N_LARGE), ("PTran", N_POINTS)):
+        got, by_kernel = train_and_resume(train_dg_single_gpu.main, rng16, model_name, n,
+                                          sets=BF16_SET)
         launches, bf16_model, bf16_batch = serving_run(infer, model_name, 6, rng16, dev, B, n,
                                                        bf16=True)
         bf16_models[model_name] = bf16_model
         bf16_launches = {k: bf16_launches[k] + got[k] + launches[k] for k in COUNTERS}
+        if model_name == "PTran":
+            va_bwd_bf16_by_kernel = by_kernel
         _, bf16_cfg = parser_config(["--cfg", YAML, "--set", "Model", model_name, *BF16_SET])
         # PointNet's first T-Net ends in a gradient that 8 clouds leave to bf16's rounding
         # (0.44 of its norm between bf16 and f32 on the CPU): 16 bring it under 0.3
-        card_against_cpu(bf16_cfg, rng16, model_name, n, variant="bf16", replay=True,
-                         bf16=True, batch_size=16 if model_name == "Pointnet" else CARD_B)
+        card_against_cpu(bf16_cfg, rng16, model_name, n, variant="bf16",
+                         replay=model_name != "PTran", bf16=True,
+                         batch_size=16 if model_name == "Pointnet" else CARD_B)
     del bf16_model, bf16_batch
-    _, ptran_bf16_cfg = parser_config(["--cfg", YAML, "--set", "Model", "PTran", *BF16_SET])
-    for what, refused in (
-        ("DGTrainer", lambda: DGTrainer(ptran_bf16_cfg, model_name="PTran", device=dev)),
-        ("infer", lambda: infer.main(["--ckpt", "unused.pt", "--model", "PTran", "--dg", "--pts",
-                                      "unused.npy", "--device", "cuda"])),
-    ):
-        try:
-            with env("SUG_PRECISION", "bf16" if what == "infer" else None):
-                refused()
-        except NotImplementedError as e:
-            print(f"PTran under bf16 through {what} refused: {e}", flush=True)
-        else:
-            fail(f"PTran under bf16 through {what} was not refused")
     print(f"bf16 policy, phase 4: {time.perf_counter() - t_bf16:.1f} s", flush=True)
 
     # 5. times
@@ -2364,20 +2577,26 @@ def main() -> None:
         va_entry["bound_ms"] += b_ms
     del args
 
-    # the PTran inference forward (transformer width 512) per batch of 64
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    with torch.no_grad():
-        pt_ms = timed_ms(lambda: ensemble_logits(ptran_model, ptran_batch), iters=5)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"forward (NetMDA PTran eval, ensemble logits), B={B}, N={N_POINTS}: {pt_ms:.3f} ms "
-          f"per batch, {B / pt_ms * 1e3:.1f} clouds/s; peak device memory {peak / 2**20:.1f} MiB "
-          f"({(peak - held) / 2**20:.1f} MiB above what the script held before)", flush=True)
-    with torch.no_grad():
-        profile_device(lambda: ensemble_logits(ptran_model, ptran_batch),
-                       "PTran inference forward", pt_ms, iters=2)
-    del ptran_model, ptran_batch
+    # the PTran inference forward (transformer width 512) per batch of 64, in
+    # f32 and under the bf16 policy (the bf16 serving model of phase 4l)
+    for net, policy in ((ptran_model, "f32"), (bf16_models.pop("PTran"), "bf16")):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with torch.no_grad():
+            pt_ms = timed_ms(lambda: ensemble_logits(net, ptran_batch), iters=5)
+        peak = torch.cuda.max_memory_allocated()
+        print(f"forward (NetMDA PTran eval, ensemble logits, {policy}), B={B}, N={N_POINTS}: "
+              f"{pt_ms:.3f} ms per batch, {B / pt_ms * 1e3:.1f} clouds/s; peak device memory "
+              f"{peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above what the script "
+              "held before)", flush=True)
+        with torch.no_grad():
+            profile_device(lambda: ensemble_logits(net, ptran_batch),
+                           f"PTran inference forward ({policy})", pt_ms, iters=2)
+        # 2 warm-up, 5 timed and 2 profiled forwards
+        check_launches(f"PTran inference forward ({policy})", "PTran", N_POINTS, 0, 9)
+    del ptran_model, ptran_batch, net
 
     # the vector-attention backward at the same five shapes, fed by one
     # forward launch; no single PyTorch call replays the edges, takes the
@@ -2417,6 +2636,20 @@ def main() -> None:
         profile_device(lambda: vector_attention.vector_attention_bwd(*args, k, *saved),
                        f"vector-attention backward, {name}", ms, iters=1)
     del args, saved
+
+    # the two kernels' bf16 mode at the same five shapes; launches from phase
+    # 4l's bf16 runs
+    va_bf16_entry = {**va_entry, "name": "vecattn_fwd_bf16", "mode": "bf16 (precise=False)",
+                     "launches": bf16_launches["vecattn_fwd"],
+                     "max_abs_err": va_bf16_max_abs_err, "ms": 0.0, "plain_ms": 0.0,
+                     "bound_ms": 0.0, "bound_by": "operations", "shapes": []}
+    va_bwd_bf16_entry = {**va_bwd_entry, "name": "vecattn_bwd_bf16", "mode": "bf16 (precise=False)",
+                         "launches": sum(va_bwd_bf16_by_kernel.values()),
+                         "calls": bf16_launches["vecattn_bwd_calls"],
+                         "launches_by_kernel": va_bwd_bf16_by_kernel,
+                         "max_abs_err": va_bwd_bf16_max_abs_err, "ms": 0.0, "plain_ms": 0.0,
+                         "bound_ms": 0.0, "bound_by": "operations", "shapes": []}
+    time_va_bf16(dev, va_bf16_entry, va_bwd_bf16_entry)
 
     # the large-N kernels at the shapes of the PointNet step at 4096 points:
     # one chamfer of two B=64 clouds (two min-dists launches), one SA-node FPS
@@ -2587,7 +2820,7 @@ def main() -> None:
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     print(json.dumps({"kernels": [entry, bwd_entry, va_entry, va_bwd_entry, md_entry, fps_entry,
-                                  *bf16_entries]}))
+                                  *bf16_entries, va_bf16_entry, va_bwd_bf16_entry]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
 

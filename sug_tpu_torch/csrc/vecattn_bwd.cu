@@ -18,8 +18,23 @@
 //   dbg2 = Σ dzs;  dbg1 = Σ dh_g;  dbd2 = Σ dpos;  dbd1 = Σ dh_d   (over every edge)
 // Tensors as in vecattn_fwd.cu (f32, contiguous, 16-byte aligned, weights in
 // the (in, out) layout, the (D, D) ones and their transposes with rows padded
-// to D + 8 floats, D = 128, 256 or 512, k <= 16); idx (B,N,k) int32; xyz
+// to D + 8 elements, D = 128, 256 or 512, k <= 16); idx (B,N,k) int32; xyz
 // gets no gradient.
+//
+// The bf16 mode (`bf16` = 1; `precise=False` of the TPU kernels, the
+// PRECISION: bf16 policy's): key, val, the (D, D) weights and their
+// transposes are bf16, s is folded into wg2 and bg2 by the caller as in
+// vecattn_fwd.cu (so the formulas above run with s = 1, and the plane dzs
+// holds dz = dvpos·(val_i + pos - out), the gradient of the folded logits,
+// whose sums are the gradients of the folded wg2 and bg2: the caller
+// multiplies them by s), wd1 comes rounded to bf16. The roundings are the
+// TPU kernels' (`_bwd_input_kernel` :279, `_bwd_weight_kernel` :358): every
+// product of the chain rounds its left operand to bf16 (bf16(delta),
+// relu_d, att_in, relu_g in the replay; bf16(dz)·wg2ᵀ, bf16(dh_g)·wg1ᵀ,
+// bf16(dpos)·wd2ᵀ back), each weight gradient is the product of two
+// bf16-rounded operands (`_bdotT`, :85), dWd1 = bf16(delta)ᵀ·bf16(dh_d),
+// the bias gradients sum the unrounded cotangents, dq sums datt unrounded,
+// and dkey, dval sum bf16(-datt), bf16(dvpos) in f32 (:351-352).
 //
 // What bounds it on an H100. Operations: B·N·k·(18·D² + 4·C·D) — per edge
 // three D×D products to replay the forward, three for the chain back and
@@ -31,7 +46,10 @@
 // there, under 1 ms. The nine staged planes below add 19.3 GB of writes per
 // call at level 0 and at least as many bytes of reads, some 11.5 ms at 3.35
 // TB/s, which the bound does not count (they are the design's, not the
-// function's).
+// function's). In the bf16 mode the products' bound falls to 5.0 ms at level
+// 0 (one bf16 product each at 989 TFLOP/s), below the staged planes' time,
+// which stay f32: the planes that are only read rounded (relu_d, att_in,
+// relu_g, datt, dvpos) could be stored in bf16.
 //
 // Design: five kernels, no float atomics, every sum in a fixed order, so two
 // launches on the same inputs agree bit for bit. The caller walks the clouds
@@ -92,16 +110,18 @@ __device__ __forceinline__ float4 masked(float4 a, unsigned bits) {
                      bits & 8u ? a.w : 0.0f);
 }
 
-template <int D>
+// V: the element type of key, val and the (D, D) weights, float or
+// __nv_bfloat16 (the bf16 mode)
+template <int D, typename V>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
-                        const float* __restrict__ key, const float* __restrict__ val,
+                        const V* __restrict__ key, const V* __restrict__ val,
                         const float* __restrict__ wd1, const float* __restrict__ bd1,
-                        const float* __restrict__ wd2, const float* __restrict__ bd2,
-                        const float* __restrict__ wg1, const float* __restrict__ bg1,
-                        const float* __restrict__ wg2, const float* __restrict__ bg2,
-                        const float* __restrict__ wd2t, const float* __restrict__ wg1t,
-                        const float* __restrict__ wg2t, const int* __restrict__ idx,
+                        const V* __restrict__ wd2, const float* __restrict__ bd2,
+                        const V* __restrict__ wg1, const float* __restrict__ bg1,
+                        const V* __restrict__ wg2, const float* __restrict__ bg2,
+                        const V* __restrict__ wd2t, const V* __restrict__ wg1t,
+                        const V* __restrict__ wg2t, const int* __restrict__ idx,
                         const float* __restrict__ m_in, const float* __restrict__ l_in,
                         const float* __restrict__ out, const float* __restrict__ dout,
                         float* __restrict__ dq, float* __restrict__ stage,
@@ -111,10 +131,10 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
   extern __shared__ __align__(128) unsigned char smem_raw[];
   float* P = reinterpret_cast<float*>(smem_raw + kBarrierBytes);  // [E][ld] pos, then dvpos
   float* G = P + T::kActFloats;          // [E][ld] the next product's input
-  float* wbuf = G + T::kActFloats;       // [kStages][kChunk][D + kWPad]
+  V* wbuf = reinterpret_cast<V*>(G + T::kActFloats);  // [kStages][kChunk][D + kWPad]
 
-  WeightPipe pipe = pipe_init(smem_raw, wbuf);
-  pipe_prologue<D>(pipe, wd2);
+  WeightPipe<V> pipe = pipe_init(smem_raw, wbuf);
+  pipe_prologue<D, V>(pipe, wd2);
 
   const int b = blockIdx.y;
   constexpr int per_query = D / kCols;
@@ -147,7 +167,12 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
 #pragma unroll
     for (int r = 0; r < kMaxK; ++r) {
       const float* xj = xyzb + (size_t)nbr[r] * 3;
-      const float d0 = x0 - xj[0], d1 = x1 - xj[1], d2 = x2 - xj[2];
+      float d0 = x0 - xj[0], d1 = x1 - xj[1], d2 = x2 - xj[2];
+      if constexpr (kIsBf16<V>) {  // bf16(delta), here and in dWd1 (the thin kernel)
+        d0 = round_bf16(d0);
+        d1 = round_bf16(d1);
+        d2 = round_bf16(d2);
+      }
       float4 h;
       h.x = fmaxf(fmaf(d2, w2.x, fmaf(d1, w1.x, d0 * w0.x)) + bias.x, 0.0f);
       h.y = fmaxf(fmaf(d2, w2.y, fmaf(d1, w1.y, d0 * w0.y)) + bias.y, 0.0f);
@@ -162,7 +187,7 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
   __syncthreads();
 
   // P = pos = G·Wd2 + bd2;  G = att_in = (q_n - key_i) + pos
-  rows_times_weights<D>(pipe, G, wd2, wg1, G);
+  rows_times_weights<D, V>(pipe, G, wd2, wg1, G);
   {
     const float4 bias = ld4(bd2 + col0);
     const float4 qv = ld4(q + row_n + col0);
@@ -182,7 +207,7 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
   __syncthreads();
 
   // G = relu_g = relu(G·Wg1 + bg1)
-  rows_times_weights<D>(pipe, G, wg1, wg2, G);
+  rows_times_weights<D, V>(pipe, G, wg1, wg2, G);
   {
     const float4 bias = ld4(bg1 + col0);
 #pragma unroll
@@ -199,7 +224,7 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
 
   // z = (G·Wg2 + bg2)·s;  alpha = exp(z - m)/l;  P = dvpos = alpha·dout;
   // G = dzs = dvpos·((val_i + pos) - out)·s
-  rows_times_weights<D>(pipe, G, wg2, wg2t, G);
+  rows_times_weights<D, V>(pipe, G, wg2, wg2t, G);
   {
     const float4 b4 = ld4(bg2 + col0), m4 = ld4(m_in + row_n + col0);
     const float4 l4 = ld4(l_in + row_n + col0), o4 = ld4(out + row_n + col0);
@@ -233,7 +258,7 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
   __syncthreads();
 
   // G = dh_g = (relu_g > 0)·(G·Wg2ᵀ)
-  rows_times_weights<D>(pipe, G, wg2t, wg1t, G);
+  rows_times_weights<D, V>(pipe, G, wg2t, wg1t, G);
 #pragma unroll
   for (int r = 0; r < kMaxK; ++r) {
     const float4 h = masked(ld4(Gq + r * ld), (unsigned)(mask_g >> (4 * r)) & 15u);
@@ -243,7 +268,7 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
   __syncthreads();
 
   // datt = G·Wg1ᵀ;  dq_n = sum over the slots;  G = dpos = datt + dvpos
-  rows_times_weights<D>(pipe, G, wg1t, wd2t, G);
+  rows_times_weights<D, V>(pipe, G, wg1t, wd2t, G);
   {
     float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
 #pragma unroll
@@ -260,7 +285,7 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
   __syncthreads();
 
   // dh_d = (relu_d > 0)·(G·Wd2ᵀ)
-  rows_times_weights<D>(pipe, G, wd2t, nullptr, G);
+  rows_times_weights<D, V>(pipe, G, wd2t, static_cast<const V*>(nullptr), G);
 #pragma unroll
   for (int r = 0; r < kMaxK; ++r) {
     STAGE(kDhD, r, masked(ld4(Gq + r * ld), (unsigned)(mask_d >> (4 * r)) & 15u));
@@ -275,7 +300,11 @@ vecattn_bwd_edge_kernel(const float* __restrict__ xyz, const float* __restrict__
 // the bias gradient, in the last. The mma's A operand (16 weight rows × 8
 // edge rows) is read transposed from the row-major stage, which mma.sync
 // allows because its fragments are loaded by hand. Warp (wm, wn) of the 4 ×
-// 2 warps owns the 32 × 64 sub-tile at (32·wm, 64·wn).
+// 2 warps owns the 32 × 64 sub-tile at (32·wm, 64·wn). kBf16 (the bf16
+// mode): both operands rounded to bf16 as the fragments load, one bf16
+// m16n8k16 per chunk of 16 rows, inner index t + 4i in the slots of lane
+// (g, t) as in vecattn_tile.cuh; the column sums stay over the unrounded G.
+template <bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 vecattn_bwd_wgrad_kernel(const float* __restrict__ stage, float* __restrict__ partial,
                          int rows, int D, int share, size_t plane) {
@@ -341,38 +370,64 @@ vecattn_bwd_wgrad_kernel(const float* __restrict__ stage, float* __restrict__ pa
       cp_async_commit();
     }
     const int st = ch % kWgStages;
-    uint32_t a_hi[2][2][4], a_lo[2][2][4];  // [m tile][k-step]
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        const float* a0 = &As[st][ks * 8 + t][wm + mi * 16 + g];
-        const float* a4 = &As[st][ks * 8 + t + 4][wm + mi * 16 + g];
-        split_tf32(a0[0], a_hi[mi][ks][0], a_lo[mi][ks][0]);
-        split_tf32(a0[8], a_hi[mi][ks][1], a_lo[mi][ks][1]);
-        split_tf32(a4[0], a_hi[mi][ks][2], a_lo[mi][ks][2]);
-        split_tf32(a4[8], a_hi[mi][ks][3], a_lo[mi][ks][3]);
-      }
-    }
-#pragma unroll
-    for (int ni = 0; ni < 8; ++ni) {
-      uint32_t b_hi[2][2], b_lo[2][2];
-#pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
-        split_tf32(Gs[st][ks * 8 + t][wn + ni * 8 + g], b_hi[ks][0], b_lo[ks][0]);
-        split_tf32(Gs[st][ks * 8 + t + 4][wn + ni * 8 + g], b_hi[ks][1], b_lo[ks][1]);
-      }
+    if constexpr (kBf16) {
+      static_assert(kTileK == 16, "a bf16 chunk is one k16 step");
+      uint32_t a[2][4];  // [m tile]
 #pragma unroll
       for (int mi = 0; mi < 2; ++mi) {
-        // the chunk's 16 rows in a fresh accumulator, added in f32 (as in
-        // rows_times_weights)
-        float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        const int c = wm + mi * 16 + g;
+        a[mi][0] = pack_bf16(As[st][t][c], As[st][t + 4][c]);
+        a[mi][1] = pack_bf16(As[st][t][c + 8], As[st][t + 4][c + 8]);
+        a[mi][2] = pack_bf16(As[st][t + 8][c], As[st][t + 12][c]);
+        a[mi][3] = pack_bf16(As[st][t + 8][c + 8], As[st][t + 12][c + 8]);
+      }
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        const int c = wn + ni * 8 + g;
+        const uint32_t b[2] = {pack_bf16(Gs[st][t][c], Gs[st][t + 4][c]),
+                               pack_bf16(Gs[st][t + 8][c], Gs[st][t + 12][c])};
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_bf16(part, a[mi], b);
+#pragma unroll
+          for (int c4 = 0; c4 < 4; ++c4) acc[mi][ni][c4] += part[c4];
+        }
+      }
+    } else {
+      uint32_t a_hi[2][2][4], a_lo[2][2][4];  // [m tile][k-step]
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi) {
 #pragma unroll
         for (int ks = 0; ks < 2; ++ks) {
-          mma_3xtf32(part, a_hi[mi][ks], a_lo[mi][ks], b_hi[ks], b_lo[ks]);
+          const float* a0 = &As[st][ks * 8 + t][wm + mi * 16 + g];
+          const float* a4 = &As[st][ks * 8 + t + 4][wm + mi * 16 + g];
+          split_tf32(a0[0], a_hi[mi][ks][0], a_lo[mi][ks][0]);
+          split_tf32(a0[8], a_hi[mi][ks][1], a_lo[mi][ks][1]);
+          split_tf32(a4[0], a_hi[mi][ks][2], a_lo[mi][ks][2]);
+          split_tf32(a4[8], a_hi[mi][ks][3], a_lo[mi][ks][3]);
+        }
+      }
+#pragma unroll
+      for (int ni = 0; ni < 8; ++ni) {
+        uint32_t b_hi[2][2], b_lo[2][2];
+#pragma unroll
+        for (int ks = 0; ks < 2; ++ks) {
+          split_tf32(Gs[st][ks * 8 + t][wn + ni * 8 + g], b_hi[ks][0], b_lo[ks][0]);
+          split_tf32(Gs[st][ks * 8 + t + 4][wn + ni * 8 + g], b_hi[ks][1], b_lo[ks][1]);
         }
 #pragma unroll
-        for (int c = 0; c < 4; ++c) acc[mi][ni][c] += part[c];
+        for (int mi = 0; mi < 2; ++mi) {
+          // the chunk's 16 rows in a fresh accumulator, added in f32 (as in
+          // rows_times_weights)
+          float part[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            mma_3xtf32(part, a_hi[mi][ks], a_lo[mi][ks], b_hi[ks], b_lo[ks]);
+          }
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[mi][ni][c] += part[c];
+        }
       }
     }
     if (sums) {
@@ -396,6 +451,9 @@ vecattn_bwd_wgrad_kernel(const float* __restrict__ stage, float* __restrict__ pa
 
 // partial[split] (4, D) = [delta, 1]ᵀ·dh_d over this block's share of the
 // rows: dWd1 in rows 0-2, dbd1 in row 3. Thread t owns columns 4t..4t+3.
+// kBf16 (the bf16 mode): dWd1 takes dh_d rounded to bf16 (delta comes
+// rounded from the edge kernel), dbd1 the unrounded dh_d.
+template <bool kBf16>
 __global__ void vecattn_bwd_thin_kernel(const float* __restrict__ delta1,
                                         const float* __restrict__ dh_d,
                                         float* __restrict__ partial, int rows, int D, int share) {
@@ -408,10 +466,12 @@ __global__ void vecattn_bwd_thin_kernel(const float* __restrict__ delta1,
 #pragma unroll 4
   for (int r = k0; r < k1; ++r) {
     const float4 a = ld4(delta1 + (size_t)r * 4);
-    const float4 g = ld4(dh_d + (size_t)r * D + col0);
+    const float4 g1 = ld4(dh_d + (size_t)r * D + col0);
+    const float4 gw = kBf16 ? round_bf16(g1) : g1;
     const float av[4] = {a.x, a.y, a.z, a.w};
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
+      const float4 g = i < 3 ? gw : g1;
       acc[i].x = fmaf(av[i], g.x, acc[i].x);
       acc[i].y = fmaf(av[i], g.y, acc[i].y);
       acc[i].z = fmaf(av[i], g.z, acc[i].z);
@@ -424,7 +484,9 @@ __global__ void vecattn_bwd_thin_kernel(const float* __restrict__ delta1,
 
 // dkey[b,i] = -Σ datt, dval[b,i] = Σ dvpos over the edges (n, j) with
 // idx[b,n,j] = i, in ascending (n, j). One warp per key; lane t owns columns
-// 128·c + 4t..4t+3 for c < D/128.
+// 128·c + 4t..4t+3 for c < D/128. kBf16 (the bf16 mode): each term rounded
+// to bf16 first, the sums f32.
+template <bool kBf16>
 __global__ void __launch_bounds__(kScatterWarps* kWarp)
 vecattn_bwd_scatter_kernel(const int* __restrict__ idx, const float* __restrict__ datt,
                            const float* __restrict__ dvpos, float* __restrict__ dkey,
@@ -452,8 +514,9 @@ vecattn_bwd_scatter_kernel(const int* __restrict__ idx, const float* __restrict_
 #pragma unroll
       for (int c = 0; c < kMaxD / 128; ++c) {
         if (c < nvec) {
-          ak[c] = add4(ak[c], ld4(datt + off + c * 128));
-          av[c] = add4(av[c], ld4(dvpos + off + c * 128));
+          const float4 da = ld4(datt + off + c * 128), dv = ld4(dvpos + off + c * 128);
+          ak[c] = add4(ak[c], kBf16 ? round_bf16(da) : da);
+          av[c] = add4(av[c], kBf16 ? round_bf16(dv) : dv);
         }
       }
     }
@@ -490,27 +553,49 @@ bool bad_shape(int B, int N, int D, int k) {
          (D != 128 && D != 256 && D != 512);
 }
 
-template <int D>
-int launch_edge(const float* xyz, const float* q, const float* key, const float* val,
-                const float* wd1, const float* bd1, const float* wd2, const float* bd2,
-                const float* wg1, const float* bg1, const float* wg2, const float* bg2,
-                const float* wd2t, const float* wg1t, const float* wg2t, const int* idx,
+template <int D, typename V>
+int launch_edge(const float* xyz, const float* q, const void* key, const void* val,
+                const float* wd1, const float* bd1, const void* wd2, const float* bd2,
+                const void* wg1, const float* bg1, const void* wg2, const float* bg2,
+                const void* wd2t, const void* wg1t, const void* wg2t, const int* idx,
                 const float* m, const float* l, const float* out, const float* dout, float* dq,
                 float* stage, float* delta1, int B, int N, int k, cudaStream_t stream) {
   using T = Tile<D>;
-  const size_t bytes = kBarrierBytes + sizeof(float) * (2 * (size_t)T::kActFloats +
-                                                        (size_t)kStages * T::kStageFloats);
+  const size_t bytes = kBarrierBytes + sizeof(float) * 2 * (size_t)T::kActFloats +
+                       sizeof(V) * (size_t)kStages * T::kStageElems;
   if (bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      vecattn_bwd_edge_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      vecattn_bwd_edge_kernel<D, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
-  const float scale = (float)(1.0 / sqrt((double)D));
+  // the bf16 mode's caller has folded s into wg2 and bg2
+  const float scale = kIsBf16<V> ? 1.0f : (float)(1.0 / sqrt((double)D));
   const int tiles = (N + T::kTq - 1) / T::kTq;
   const dim3 grid((tiles + kCluster - 1) / kCluster * kCluster, B);
-  vecattn_bwd_edge_kernel<D><<<grid, kThreads, bytes, stream>>>(
-      xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, wd2t, wg1t, wg2t, idx, m, l, out,
-      dout, dq, stage, delta1, N, k, scale, (size_t)B * N * kMaxK * D);
+  const auto w = [](const void* p) { return static_cast<const V*>(p); };
+  vecattn_bwd_edge_kernel<D, V><<<grid, kThreads, bytes, stream>>>(
+      xyz, q, w(key), w(val), wd1, bd1, w(wd2), bd2, w(wg1), bg1, w(wg2), bg2, w(wd2t), w(wg1t),
+      w(wg2t), idx, m, l, out, dout, dq, stage, delta1, N, k, scale,
+      (size_t)B * N * kMaxK * D);
   return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_edge_width(const float* xyz, const float* q, const void* key, const void* val,
+                      const float* wd1, const float* bd1, const void* wd2, const float* bd2,
+                      const void* wg1, const float* bg1, const void* wg2, const float* bg2,
+                      const void* wd2t, const void* wg1t, const void* wg2t, const int* idx,
+                      const float* m, const float* l, const float* out, const float* dout,
+                      float* dq, float* stage, float* delta1, int B, int N, int D, int k,
+                      cudaStream_t s) {
+#define EDGE_ARGS                                                                            \
+  xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, wd2t, wg1t, wg2t, idx, m, l, out, \
+      dout, dq, stage, delta1, B, N, k, s
+  switch (D) {
+    case 128: return launch_edge<128, V>(EDGE_ARGS);
+    case 256: return launch_edge<256, V>(EDGE_ARGS);
+    default: return launch_edge<512, V>(EDGE_ARGS);
+  }
+#undef EDGE_ARGS
 }
 
 }  // namespace
@@ -518,74 +603,76 @@ int launch_edge(const float* xyz, const float* q, const float* key, const float*
 extern "C" {
 
 // Every launcher returns a cudaError_t: cudaErrorInvalidValue when the shapes
-// are out of range, otherwise cudaGetLastError() after the launch.
+// are out of range or `bf16` is not 0 or 1, otherwise cudaGetLastError()
+// after the launch. `bf16` = 1 runs the bf16 mode (the contract's note).
 
 // Replays the B clouds given and writes dq (B,N,D), the nine staged planes
 // `stage` (9, B·N·16, D) and `delta1` (B·N·16, 4). wd2t, wg1t, wg2t are the
-// transposes of wd2, wg1, wg2.
-int vecattn_bwd_edge(const float* xyz, const float* q, const float* key, const float* val,
-                     const float* wd1, const float* bd1, const float* wd2, const float* bd2,
-                     const float* wg1, const float* bg1, const float* wg2, const float* bg2,
-                     const float* wd2t, const float* wg1t, const float* wg2t, const int* idx,
+// transposes of wd2, wg1, wg2; key, val and these six are float, or bf16
+// where `bf16` is 1.
+int vecattn_bwd_edge(const float* xyz, const float* q, const void* key, const void* val,
+                     const float* wd1, const float* bd1, const void* wd2, const float* bd2,
+                     const void* wg1, const float* bg1, const void* wg2, const float* bg2,
+                     const void* wd2t, const void* wg1t, const void* wg2t, const int* idx,
                      const float* m, const float* l, const float* out, const float* dout,
                      float* dq, float* stage, float* delta1,
-                     int B, int N, int D, int k, void* stream) {
-  if (bad_shape(B, N, D, k)) return (int)cudaErrorInvalidValue;
+                     int B, int N, int D, int k, int bf16, void* stream) {
+  if (bad_shape(B, N, D, k) || (bf16 != 0 && bf16 != 1)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
-#define EDGE_ARGS                                                                            \
-  xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, wd2t, wg1t, wg2t, idx, m, l, out, \
-      dout, dq, stage, delta1, B, N, k, s
-  switch (D) {
-    case 128: return launch_edge<128>(EDGE_ARGS);
-    case 256: return launch_edge<256>(EDGE_ARGS);
-    default: return launch_edge<512>(EDGE_ARGS);
-  }
-#undef EDGE_ARGS
+  return bf16 ? launch_edge_width<__nv_bfloat16>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1,
+                                                 wg2, bg2, wd2t, wg1t, wg2t, idx, m, l, out,
+                                                 dout, dq, stage, delta1, B, N, D, k, s)
+              : launch_edge_width<float>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2,
+                                         bg2, wd2t, wg1t, wg2t, idx, m, l, out, dout, dq, stage,
+                                         delta1, B, N, D, k, s);
 }
 
 // partial (splits, 3, D + 1, D) from the staged planes of `rows` rows.
-int vecattn_bwd_wgrad(const float* stage, float* partial, int rows, int D, int splits,
+int vecattn_bwd_wgrad(const float* stage, float* partial, int rows, int D, int splits, int bf16,
                       void* stream) {
   if (rows < kTileK || rows % kTileK != 0 || D < 128 || D > kMaxD || D % 128 != 0 || splits < 1 ||
-      splits > 65535) {
+      splits > 65535 || (bf16 != 0 && bf16 != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const int chunks = rows / kTileK;
   const int share = (chunks + splits - 1) / splits * kTileK;
   const dim3 grid((D / kTile) * (D / kTile), splits, 3);
-  cudaError_t err = cudaFuncSetAttribute(
-      vecattn_bwd_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWgSmem);
+  const auto kernel = bf16 ? vecattn_bwd_wgrad_kernel<true> : vecattn_bwd_wgrad_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kWgSmem);
   if (err != cudaSuccess) return (int)err;
-  vecattn_bwd_wgrad_kernel<<<grid, kThreads, kWgSmem, (cudaStream_t)stream>>>(
-      stage, partial, rows, D, share, (size_t)rows * D);
+  kernel<<<grid, kThreads, kWgSmem, (cudaStream_t)stream>>>(stage, partial, rows, D, share,
+                                                            (size_t)rows * D);
   return (int)cudaGetLastError();
 }
 
 // partial (splits, 4, D) from delta1 (rows, 4) and the staged dh_d (rows, D).
 int vecattn_bwd_thin(const float* delta1, const float* dh_d, float* partial, int rows, int D,
-                     int splits, void* stream) {
-  if (rows < 1 || D < 128 || D > kMaxD || D % 128 != 0 || splits < 1) {
+                     int splits, int bf16, void* stream) {
+  if (rows < 1 || D < 128 || D > kMaxD || D % 128 != 0 || splits < 1 ||
+      (bf16 != 0 && bf16 != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const int share = (rows + splits - 1) / splits;
-  vecattn_bwd_thin_kernel<<<splits, D / 4, 0, (cudaStream_t)stream>>>(
-      delta1, dh_d, partial, rows, D, share);
+  const auto kernel = bf16 ? vecattn_bwd_thin_kernel<true> : vecattn_bwd_thin_kernel<false>;
+  kernel<<<splits, D / 4, 0, (cudaStream_t)stream>>>(delta1, dh_d, partial, rows, D, share);
   return (int)cudaGetLastError();
 }
 
-// dkey, dval (B,N,D) of the B clouds given, from idx (B,N,k) and the staged
-// datt and dvpos (B·N·16, D).
+// dkey, dval (B,N,D) f32 of the B clouds given, from idx (B,N,k) and the
+// staged datt and dvpos (B·N·16, D).
 int vecattn_bwd_scatter(const int* idx, const float* datt, const float* dvpos, float* dkey,
-                        float* dval, int B, int N, int D, int k, void* stream) {
-  if (bad_shape(B, N, D, k)) return (int)cudaErrorInvalidValue;
+                        float* dval, int B, int N, int D, int k, int bf16, void* stream) {
+  if (bad_shape(B, N, D, k) || (bf16 != 0 && bf16 != 1)) return (int)cudaErrorInvalidValue;
   const size_t bytes = sizeof(int) * (size_t)N * k;
   if (bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      vecattn_bwd_scatter_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  const auto kernel = bf16 ? vecattn_bwd_scatter_kernel<true> : vecattn_bwd_scatter_kernel<false>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((N + kScatterWarps - 1) / kScatterWarps, B);
-  vecattn_bwd_scatter_kernel<<<grid, kScatterWarps * kWarp, bytes, (cudaStream_t)stream>>>(
-      idx, datt, dvpos, dkey, dval, N, D, k);
+  kernel<<<grid, kScatterWarps * kWarp, bytes, (cudaStream_t)stream>>>(idx, datt, dvpos, dkey,
+                                                                       dval, N, D, k);
   return (int)cudaGetLastError();
 }
 

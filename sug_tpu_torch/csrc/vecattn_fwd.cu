@@ -20,6 +20,19 @@
 // s is 1/sqrt(D) computed in double and rounded to f32, as the plain
 // PyTorch version computes it.
 //
+// The bf16 mode (`bf16` = 1; the TPU kernel's `precise=False`, selected
+// under the PRECISION: bf16 policy): key and val are bf16 (widened to f32 as
+// they are gathered); wd2, wg1 and wg2 are bf16, with s folded into wg2 and
+// bg2 by the caller (wg2 = bf16(Wg2·s), bg2 = bg2·s in f32, as
+// `fused_vector_attention` folds it, vector_attention_pallas.py:721-731), so
+// z = relu_g·wg2 + bg2 with no further scale; wd1 comes rounded to bf16 (in
+// f32). Each product rounds its left operand to bf16 and sums in f32
+// (`_bdot`, :76): bf16(delta)·wd1 on FMAs, bf16(relu_d)·wd2,
+// bf16(att_in)·wg1 and bf16(relu_g)·wg2 on bf16 `mma.sync` (vecattn_tile.cuh).
+// att_in = q - key_j + pos, the softmax and the sum over (val_j + pos) stay
+// f32, and so does the kNN. The instance takes W = __nv_bfloat16 where the
+// f32 one takes float; the f32 instance is as it was.
+//
 // What bounds it on an H100. Operations: B·N·(2·N·C + k·(2·C·D + 6·D^2)),
 // almost all of it the three D×D products per edge; at PTran's level 0
 // (B=64, N=1024, D=512, k=16) that is 1.65 TFLOP. The products run on the
@@ -33,6 +46,9 @@
 // weights, 103 GB of L2 reads per call at level 0 if each block read them
 // alone. A cluster of kCluster blocks shares each weight chunk (one
 // multicast copy per chunk and cluster), which cuts that kCluster times.
+// In the bf16 mode each D×D product is one bf16 product at 989 TFLOP/s,
+// 1.7 ms at level 0, a sixth of the 3×TF32 bound, and the weight stream
+// moves half the bytes.
 //
 // Design:
 // - One block of 256 threads per (cloud, TQ queries); TQ = 1024/D, for D =
@@ -74,7 +90,7 @@ struct Layout {
   size_t bytes;       // dynamic shared memory
 };
 
-template <int D>
+template <int D, typename V>
 Layout make_layout(int N) {
   using T = Tile<D>;
   Layout L;
@@ -82,19 +98,21 @@ Layout make_layout(int N) {
   const size_t act = 2 * (size_t)T::kActFloats;
   const size_t dist = ((size_t)T::kTq * N + 3) / 4 * 4;  // float4-aligned end
   L.act_floats = act > dist ? act : dist;
-  L.bytes = kBarrierBytes + sizeof(float) * (L.act_floats + (size_t)kStages * T::kStageFloats) +
-            sizeof(int) * (size_t)T::kE;
+  L.bytes = kBarrierBytes + sizeof(float) * L.act_floats +
+            sizeof(V) * (size_t)kStages * T::kStageElems + sizeof(int) * (size_t)T::kE;
   return L;
 }
 
-template <int D>
+// V: the element type of key, val and the (D, D) weights, float or
+// __nv_bfloat16 (the bf16 mode)
+template <int D, typename V>
 __global__ void __cluster_dims__(kCluster, 1, 1) __launch_bounds__(kThreads, 1)
 vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
-                   const float* __restrict__ key, const float* __restrict__ val,
+                   const V* __restrict__ key, const V* __restrict__ val,
                    const float* __restrict__ wd1, const float* __restrict__ bd1,
-                   const float* __restrict__ wd2, const float* __restrict__ bd2,
-                   const float* __restrict__ wg1, const float* __restrict__ bg1,
-                   const float* __restrict__ wg2, const float* __restrict__ bg2,
+                   const V* __restrict__ wd2, const float* __restrict__ bd2,
+                   const V* __restrict__ wg1, const float* __restrict__ bg1,
+                   const V* __restrict__ wg2, const float* __restrict__ bg2,
                    float* __restrict__ out, float* __restrict__ m_out,
                    float* __restrict__ l_out, int* __restrict__ idx_out,
                    int N, int k, float scale, int act_floats) {
@@ -105,11 +123,11 @@ vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
   float* P = act;                        // [E][ld] pos
   float* G = act + T::kActFloats;        // [E][ld] relu_d, att_in, relu_g, the logits
   float* dist = act;                     // [tq][N] during phase A
-  float* wbuf = act + act_floats;        // [kStages][kChunk][D + kWPad]
-  int* sidx = reinterpret_cast<int*>(wbuf + kStages * T::kStageFloats);  // [tq][kMaxK]
+  V* wbuf = reinterpret_cast<V*>(act + act_floats);  // [kStages][kChunk][D + kWPad]
+  int* sidx = reinterpret_cast<int*>(wbuf + kStages * T::kStageElems);  // [tq][kMaxK]
 
-  WeightPipe pipe = pipe_init(smem_raw, wbuf);
-  pipe_prologue<D>(pipe, wd2);  // the first chunks of Wd2 load during phase A
+  WeightPipe<V> pipe = pipe_init(smem_raw, wbuf);
+  pipe_prologue<D, V>(pipe, wd2);  // the first chunks of Wd2 load during phase A
 
   const int b = blockIdx.y;
   const int n0 = blockIdx.x * tq;
@@ -189,7 +207,12 @@ vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < kMaxK; ++r) {
       const float* xj = xyzb + (size_t)nbr[r] * 3;
-      const float d0 = x0 - xj[0], d1 = x1 - xj[1], d2 = x2 - xj[2];
+      float d0 = x0 - xj[0], d1 = x1 - xj[1], d2 = x2 - xj[2];
+      if constexpr (kIsBf16<V>) {  // bf16(delta)·bf16(wd1): exact products, f32 sums
+        d0 = round_bf16(d0);
+        d1 = round_bf16(d1);
+        d2 = round_bf16(d2);
+      }
       float4 h;
       h.x = fmaxf(fmaf(d2, w2.x, fmaf(d1, w1.x, d0 * w0.x)) + bias.x, 0.0f);
       h.y = fmaxf(fmaf(d2, w2.y, fmaf(d1, w1.y, d0 * w0.y)) + bias.y, 0.0f);
@@ -201,7 +224,7 @@ vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
   __syncthreads();
 
   // P = G·Wd2 + bd2;  G = (q_n - key_j) + P
-  rows_times_weights<D>(pipe, G, wd2, wg1, G);
+  rows_times_weights<D, V>(pipe, G, wd2, wg1, G);
   {
     const float4 bias = ld4(bd2 + col0);
     const float4 qv = ld4(q + row_n + col0);
@@ -218,7 +241,7 @@ vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
   __syncthreads();
 
   // G = relu(G·Wg1 + bg1)
-  rows_times_weights<D>(pipe, G, wg1, wg2, G);
+  rows_times_weights<D, V>(pipe, G, wg1, wg2, G);
   {
     const float4 bias = ld4(bg1 + col0);
 #pragma unroll
@@ -230,8 +253,8 @@ vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
   }
   __syncthreads();
 
-  // z = (G·Wg2 + bg2)·s; the softmax over the k valid slots
-  rows_times_weights<D>(pipe, G, wg2, nullptr, G);
+  // z = (G·Wg2 + bg2)·s (bf16 mode: s folded in, scale 1); the softmax over the k valid slots
+  rows_times_weights<D, V>(pipe, G, wg2, static_cast<const V*>(nullptr), G);
   cluster_sync();  // no block exits while another of its cluster may still signal it
   if (!valid) return;  // no barrier follows
   const float4 b4 = ld4(bg2 + col0);
@@ -277,55 +300,71 @@ vecattn_fwd_kernel(const float* __restrict__ xyz, const float* __restrict__ q,
   }
 }
 
-template <int D>
-int launch(const float* xyz, const float* q, const float* key, const float* val,
-           const float* wd1, const float* bd1, const float* wd2, const float* bd2,
-           const float* wg1, const float* bg1, const float* wg2, const float* bg2,
+template <int D, typename V>
+int launch(const float* xyz, const float* q, const void* key, const void* val,
+           const float* wd1, const float* bd1, const void* wd2, const float* bd2,
+           const void* wg1, const float* bg1, const void* wg2, const float* bg2,
            float* out, float* m, float* l, int* idx, int B, int N, int k, cudaStream_t stream) {
-  const Layout L = make_layout<D>(N);
+  const Layout L = make_layout<D, V>(N);
   if (L.bytes > kSmemLimit) return (int)cudaErrorInvalidValue;
-  const float scale = (float)(1.0 / sqrt((double)D));
+  // the bf16 mode's caller has folded s into wg2 and bg2
+  const float scale = kIsBf16<V> ? 1.0f : (float)(1.0 / sqrt((double)D));
   cudaError_t err = cudaFuncSetAttribute(
-      vecattn_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
+      vecattn_fwd_kernel<D, V>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)L.bytes);
   if (err != cudaSuccess) return (int)err;
   const int tiles = (N + L.tq - 1) / L.tq;
   const dim3 grid((tiles + kCluster - 1) / kCluster * kCluster, B);
-  vecattn_fwd_kernel<D><<<grid, kThreads, L.bytes, stream>>>(
-      xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l, idx,
-      N, k, scale, (int)L.act_floats);
+  vecattn_fwd_kernel<D, V><<<grid, kThreads, L.bytes, stream>>>(
+      xyz, q, static_cast<const V*>(key), static_cast<const V*>(val), wd1, bd1,
+      static_cast<const V*>(wd2), bd2, static_cast<const V*>(wg1), bg1,
+      static_cast<const V*>(wg2), bg2, out, m, l, idx, N, k, scale, (int)L.act_floats);
   return (int)cudaGetLastError();
+}
+
+template <typename V>
+int launch_width(const float* xyz, const float* q, const void* key, const void* val,
+                 const float* wd1, const float* bd1, const void* wd2, const float* bd2,
+                 const void* wg1, const float* bg1, const void* wg2, const float* bg2,
+                 float* out, float* m, float* l, int* idx, int B, int N, int D, int k,
+                 cudaStream_t s) {
+  switch (D) {
+    case 128:
+      return launch<128, V>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l,
+                            idx, B, N, k, s);
+    case 256:
+      return launch<256, V>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l,
+                            idx, B, N, k, s);
+    case 512:
+      return launch<512, V>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l,
+                            idx, B, N, k, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the kernel on `stream`. Returns a cudaError_t:
-// cudaErrorInvalidValue when the shapes are out of range (D not 128, 256 or
-// 512, k outside [1, min(N, 16)]) or N is too large for the distance rows
-// in shared memory; otherwise cudaGetLastError() after the launch.
-int vecattn_fwd(const float* xyz, const float* q, const float* key, const float* val,
-                const float* wd1, const float* bd1, const float* wd2, const float* bd2,
-                const float* wg1, const float* bg1, const float* wg2, const float* bg2,
+// Launches the kernel on `stream`. key, val, wd2, wg1 and wg2 are float,
+// or bf16 where `bf16` is 1 (the bf16 mode: the contract's note). Returns a
+// cudaError_t: cudaErrorInvalidValue when the shapes are out of range (D
+// not 128, 256 or 512, k outside [1, min(N, 16)], bf16 not 0 or 1) or N is
+// too large for the distance rows in shared memory; otherwise
+// cudaGetLastError() after the launch.
+int vecattn_fwd(const float* xyz, const float* q, const void* key, const void* val,
+                const float* wd1, const float* bd1, const void* wd2, const float* bd2,
+                const void* wg1, const float* bg1, const void* wg2, const float* bg2,
                 float* out, float* m, float* l, int* idx,
-                int B, int N, int D, int k, void* stream) {
-  if (B < 1 || B > 65535 || N < 1 || k < 1 || k > kMaxK || k > N) {
+                int B, int N, int D, int k, int bf16, void* stream) {
+  if (B < 1 || B > 65535 || N < 1 || k < 1 || k > kMaxK || k > N || (bf16 != 0 && bf16 != 1)) {
     return (int)cudaErrorInvalidValue;
   }
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (D) {
-    case 128:
-      return launch<128>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l,
-                         idx, B, N, k, s);
-    case 256:
-      return launch<256>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l,
-                         idx, B, N, k, s);
-    case 512:
-      return launch<512>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2, out, m, l,
-                         idx, B, N, k, s);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return bf16 ? launch_width<__nv_bfloat16>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2,
+                                            bg2, out, m, l, idx, B, N, D, k, s)
+              : launch_width<float>(xyz, q, key, val, wd1, bd1, wd2, bd2, wg1, bg1, wg2, bg2,
+                                    out, m, l, idx, B, N, D, k, s);
 }
 
 const char* vecattn_error_string(int err) {

@@ -32,9 +32,9 @@ params, their gradients and the optimizer's moments stay f32. The heads'
 logits are f32; their 256-d mid features are bf16, as in the JAX package,
 and so is what the sem alignments other than ``SOFT_MMD`` compute from them.
 
-``model_name`` is "DGCNN", "PTran" or "Pointnet". What the port does not
-have yet (the other backbones, with the KPConv regularizer, and PTran under
-the bf16 policy, whose vector attention has no bf16 mode yet) raises
+``model_name`` is "DGCNN", "PTran" or "Pointnet"; PTran's vector attention
+runs its bf16 mode under the policy. What the port does not have yet (the
+other backbones, with the KPConv regularizer) raises
 ``NotImplementedError`` naming ROADMAP.md.
 """
 
@@ -134,7 +134,7 @@ class DGTrainer:
         self.bn_groups = configure_from_cfg(cfg)
         set_bn_groups(self.model, self.bn_groups)
         self.compute_dtype = compute_dtype(cfg)
-        self.model.set_compute_dtype(self.compute_dtype)  # refuses PTran under bf16
+        self.model.set_compute_dtype(self.compute_dtype)
         self.grl = bool(cfg["METHODS"].get("GRL", False))
         self.generator = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.params = list(self.model.named_parameters())

@@ -11,9 +11,8 @@ an ``.npy`` of clouds, and optionally saves the predictions.
 ``--ckpt`` takes the port's own ``torch.save`` checkpoint or an ``.npz`` of
 the JAX package's variables (see the README). A PTran model is built for
 ``--num_points`` points (its ``point_mix`` layer), so its checkpoint must
-come from a model of that size. ``SUG_PRECISION=bf16`` serves DGCNN and
-Pointnet under the bf16 policy (``models/precision.py``); PTran under it
-raises ``NotImplementedError``.
+come from a model of that size. ``SUG_PRECISION=bf16`` serves each of the
+three under the bf16 policy (``models/precision.py``).
 """
 
 from __future__ import annotations
@@ -81,7 +80,7 @@ def main(argv: Optional[Sequence[str]] = None) -> Dict:
             "the standalone-classifier route (infer without --dg) is not ported yet; "
             "it is queued in ROADMAP.md"
         )
-    dtype = compute_dtype()  # SUG_PRECISION; the model refuses PTran under bf16
+    dtype = compute_dtype()  # SUG_PRECISION
     device = resolve_device(args.device)
     model = load_model(args.model, args.ckpt, device, args.num_points, dtype)
 

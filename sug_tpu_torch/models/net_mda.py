@@ -4,7 +4,7 @@
 both-domains forward (``domain="stacked"``) and the gradient-reversal layer.
 The other backbones come with later slices (ROADMAP.md, "Modules to port").
 ``set_compute_dtype`` sets the bf16 policy (``models/precision.py``) on
-DGCNN and Pointnet; PTran under bf16 raises ``NotImplementedError``.
+each of the three.
 """
 
 from __future__ import annotations
@@ -80,12 +80,7 @@ class NetMDA(nn.Module):
 
     def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> "NetMDA":
         """The compute dtype of every layer that follows the policy: None
-        (f32) or ``torch.bfloat16``. PTran has no bf16 path and raises: its
-        vector-attention kernels have no bf16 mode yet."""
-        if dtype is not None and self.model_name == "PTran":
-            raise NotImplementedError(
-                "PRECISION bf16 for Model 'PTran' (the vector attention's bf16 mode, ROADMAP "
-                "item 12b) is not ported yet; it is queued in ROADMAP.md")
+        (f32) or ``torch.bfloat16``."""
         set_compute_dtype(self, dtype)
         return self
 

@@ -2,8 +2,10 @@
 
 ``PRECISION: bf16`` in the config (top level, else under ``OPTIMIZATION``)
 or ``SUG_PRECISION=bf16`` switches the Dense layers of ``ConvBN``,
-``FCLayer`` and ``CALayer`` to bfloat16 and the EdgeConv kernels to their
-``values_bf16`` mode, as the JAX package does with flax's ``dtype=``:
+``FCLayer``, ``CALayer`` and PTran's ``VectorAttentionBlock`` (its four
+projections into the attention) to bfloat16, the EdgeConv kernels to their
+``values_bf16`` mode and the vector attention to its bf16 mode (selected by
+its bf16 key and val), as the JAX package does with flax's ``dtype=``:
 
 - parameters, gradients and optimizer state stay f32;
 - a bf16 Dense casts its input, kernel and bias to bf16 and returns bf16;

@@ -7,6 +7,14 @@ gamma MLPs over each point's k=16 neighbours, the per-channel softmax) in
 the backbone. The Dense layers around it are ``nn.Linear`` layers named after
 the JAX tree (``fc1``, ``w_qs``, ..., ``fc_gamma2``, ``fc2``); the kernel takes
 their weights in the (in, out) layout of flax's Dense kernels.
+
+Under the bf16 policy (``models/precision.py``) the block's ``fc1``,
+``w_qs``, ``w_ks`` and ``w_vs`` compute in bf16, as the JAX block passes them
+``dtype=compute_dtype()`` (``sug_tpu/models/ptran.py:113-116``), so q, key
+and val reach the attention in bf16 and select its bf16 mode; ``fc2`` has no
+dtype there (:132, :162) and promotes, and so does the residual ``+
+features``; the backbone's ``fc1a``/``fc1b`` and the generator's
+``point_mix`` stay f32; ``TransitionDown``'s ``ConvBN``s follow the policy.
 """
 
 from __future__ import annotations
@@ -16,7 +24,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from sug_tpu_torch.models.layers import ConvBN
+from sug_tpu_torch.models.layers import ConvBN, Dense
+from sug_tpu_torch.models.precision import Mixed
 from sug_tpu_torch.ops.geometry import (
     farthest_point_sample,
     index_points,
@@ -31,17 +40,18 @@ def _kernel(layer: nn.Linear) -> torch.Tensor:
     return layer.weight.t().contiguous()
 
 
-class VectorAttentionBlock(nn.Module):
+class VectorAttentionBlock(Mixed):
     """TransformerBlock: d_points <-> d_model projections around vector
-    attention with relative-position encodings, plus the residual."""
+    attention with relative-position encodings, plus the residual; the four
+    projections into the attention in the compute dtype."""
 
     def __init__(self, d_points: int, d_model: int = 512, k: int = 16):
         super().__init__()
         self.k = k
-        self.fc1 = nn.Linear(d_points, d_model)
-        self.w_qs = nn.Linear(d_model, d_model, bias=False)
-        self.w_ks = nn.Linear(d_model, d_model, bias=False)
-        self.w_vs = nn.Linear(d_model, d_model, bias=False)
+        self.fc1 = Dense(d_points, d_model)
+        self.w_qs = Dense(d_model, d_model, bias=False)
+        self.w_ks = Dense(d_model, d_model, bias=False)
+        self.w_vs = Dense(d_model, d_model, bias=False)
         self.fc_delta1 = nn.Linear(3, d_model)
         self.fc_delta2 = nn.Linear(d_model, d_model)
         self.fc_gamma1 = nn.Linear(d_model, d_model)
@@ -49,9 +59,10 @@ class VectorAttentionBlock(nn.Module):
         self.fc2 = nn.Linear(d_model, d_points)
 
     def forward(self, xyz: torch.Tensor, features: torch.Tensor) -> torch.Tensor:
-        x = self.fc1(features)
+        dt = self.compute_dtype
+        x = self.fc1(features, dt)
         res = fused_vector_attention(
-            xyz, self.w_qs(x), self.w_ks(x), self.w_vs(x),
+            xyz, self.w_qs(x, dt), self.w_ks(x, dt), self.w_vs(x, dt),
             _kernel(self.fc_delta1), self.fc_delta1.bias,
             _kernel(self.fc_delta2), self.fc_delta2.bias,
             _kernel(self.fc_gamma1), self.fc_gamma1.bias,

@@ -34,8 +34,7 @@ in f32 (``edgeconv_pallas.py:351-355``). On the card the gather, rows and
 keys kernels then read u at 2 bytes an element. Every plain version takes
 the flag too and stays the kernels' bit-for-bit specification. DGCNN's four
 blocks and the SA-node's re-query (DGCNN and PointNet) select the mode under
-the policy; PTran, whose vector attention has no bf16 mode yet, raises under
-it (ROADMAP.md).
+the policy.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; on a CUDA tensor
 it launches its hand-written kernels (``csrc/edgeconv_fwd.cu``,

@@ -8,11 +8,9 @@ which the trainer and ``infer`` read once and set on the model) is the JAX
 one, bf16 or f32, that an unknown name raises ``ValueError`` in both, and
 that the port's ``configure_from_cfg`` gives the JAX package's group count.
 The ``infer`` case serves a checkpoint under ``SUG_PRECISION=bf16`` with
-both models. PTran has no bf16 path yet (its vector attention's bf16 mode
-is queued in ROADMAP.md): the model refuses the policy
-(``NetMDA.set_compute_dtype``), so under each of the three triggers the
-trainer (``check_supported``, then ``DGTrainer``) and ``infer`` raise
-``NotImplementedError`` naming ROADMAP.md."""
+both models. PTran under each of the three triggers builds through the
+trainer (``check_supported``, then ``DGTrainer``) and is served by ``infer``
+with every ``Mixed`` module in bf16, its vector attention in its bf16 mode."""
 
 from __future__ import annotations
 
@@ -98,7 +96,8 @@ def _serve(tmp_path, monkeypatch, model_name):
     """``infer.main`` on two clouds with a checkpoint of ``model_name``;
     returns the compute dtype of the model it served and its predictions."""
     ckpt = save_checkpoint(str(tmp_path / f"{model_name}.pt"),
-                           NetMDA(model_name, generator=torch.Generator().manual_seed(0)), 0)
+                           NetMDA(model_name, generator=torch.Generator().manual_seed(0),
+                                  num_points=128), 0)
     pts = tmp_path / "clouds.npy"
     np.save(pts, np.random.default_rng(0).normal(size=(2, 128, 3)).astype(np.float32))
     served, load = [], infer.load_model
@@ -143,17 +142,22 @@ def test_port_refuses_what_jax_computes_otherwise(clean_state, tmp_path, edits, 
 # infer reads the environment alone, the trainer the config and the environment
 @pytest.mark.parametrize("trigger,entry", [(t, "check_supported") for t in TRIGGERS]
                          + [("env", "infer")])
-def test_ptran_under_bf16_raises(clean_state, trigger, entry):
+def test_ptran_under_bf16_raises(clean_state, tmp_path, trigger, entry):
+    """PTran under bf16 through each trigger and entry point raises nothing,
+    and computes in bf16 on every ``Mixed`` module (its attention blocks'
+    projections among them)."""
     edits, env = TRIGGERS[trigger]
     for var, value in env.items():
         clean_state.setenv(var, value)
     cfg = _config(edits)
     assert _jax_policy(cfg)[0] == jnp.bfloat16
     if entry == "infer":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            infer.main(["--ckpt", "missing.pt", "--model", "PTran", "--dg", "--pts",
-                        "missing.npy", "--device", "cpu"])
-    else:  # the trainer's front door: check_supported reads the policy, the model refuses it
+        served, preds = _serve(tmp_path, clean_state, "PTran")
+        assert served == [torch.bfloat16] and preds.shape == (2,)
+    else:  # the trainer's front door: check_supported reads the policy, the trainer sets it
         check_supported(cfg, "PTran")
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DGTrainer(cfg, model_name="PTran", device="cpu")
+        tr = DGTrainer(cfg, model_name="PTran", device="cpu")
+        mixed = [m for m in tr.model.modules() if isinstance(m, Mixed)]
+        assert tr.compute_dtype == torch.bfloat16
+        assert {m.compute_dtype for m in mixed} == {torch.bfloat16}
+        assert sum(type(m).__name__ == "VectorAttentionBlock" for m in mixed) == 5
