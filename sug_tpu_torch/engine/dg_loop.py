@@ -11,7 +11,6 @@ checkpoint; ``--resume`` continues at the saved epoch.
 
 from __future__ import annotations
 
-import datetime
 import math
 import os
 import time
@@ -21,14 +20,14 @@ import numpy as np
 import torch
 
 from sug_tpu_torch import resolve_device
-from sug_tpu_torch.data.datasets import DATASET_LIST, create_single_dataset, create_splitted_dataset
+from sug_tpu_torch.data.datasets import DATASET_LIST, create_splitted_dataset
 from sug_tpu_torch.data.sampler import BatchIterator, ClassBalancedBatchIterator
 from sug_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint, save_train_checkpoint
 from sug_tpu_torch.engine.dg_trainer import DGTrainer, check_supported, make_criterion
-from sug_tpu_torch.engine.evaluation import Evaluator, eval_worker
+from sug_tpu_torch.engine.evaluation import Evaluator, eval_epoch, eval_datasets
 from sug_tpu_torch.engine.optim import cosine_lr, dis_lr_schedule
 from sug_tpu_torch.utils.config import log_config_to_file, resolve_seed
-from sug_tpu_torch.utils.logging import MetricsWriter, create_logger, exp_log_folder_creator
+from sug_tpu_torch.utils.logging import open_run
 
 LOSS_KEYS = ("loss_cls", "loss_adv", "loss_geo", "loss_sem")
 
@@ -50,10 +49,7 @@ def run_dg_training(args, cfg) -> Dict:
     np.random.seed(seed)  # the Random splitter draws from numpy's global state
     batch_size, num_points = args.batch_size, args.num_points
 
-    output_dir, ckpt_dir = exp_log_folder_creator(cfg, extra_tag=args.source)
-    log_name = "log_train_dg%s.txt" % datetime.datetime.now().strftime("%Y%m%d-%H%M%S")
-    logger = create_logger(log_file=os.path.join(output_dir, log_name))
-    writer = MetricsWriter(os.path.join(output_dir, "metrics"))
+    ckpt_dir, logger, writer = open_run(cfg, args.source, "log_train_dg")
     logger.info("**********************Start logging**********************")
     for key, val in vars(args).items():
         logger.info("{:16} {}".format(key, val))
@@ -80,12 +76,7 @@ def run_dg_training(args, cfg) -> Dict:
         source_iters.append(_make_train_iter(src, cfg, batch_size, seed))
         target_iters.append(_make_train_iter(tgt, cfg, batch_size, seed + 1))
 
-    names = {"source": args.source, "test1": test_datasets[0], "test2": test_datasets[-1]}
-    eval_sets = {
-        k: create_single_dataset(d, "test", pc_num=num_points, model=model_name,
-                                 data_root=data_root, fixed_x_rotation=fixed_rot)
-        for k, d in names.items()
-    }
+    names, eval_sets = eval_datasets(args.source, num_points, model_name, data_root, fixed_rot)
     logger.info(f"batch_size: {batch_size}")
 
     opt_cfg = cfg["OPTIMIZATION"]
@@ -159,19 +150,8 @@ def run_dg_training(args, cfg) -> Dict:
             logger.info(f"throughput: {cps:.0f} clouds/sec ({ms_per_step:.1f} ms/step)")
 
         prev_best_t1 = best["test1"][1]
-        eval_batches = 0
-        for name, dataset in eval_sets.items():
-            loader = BatchIterator(dataset, batch_size, shuffle=False, drop_last=False)
-            eval_batches += len(loader)
-            result = eval_worker({
-                "evaluator": evaluator, "dataloader": loader, "dataset": name,
-                "dataset_name": names[name], "epoch": epoch, "best_target_acc": best[name][1],
-                "best_target_acc_epoch": best[name][0], "cls_eval": cls_eval,
-            }, logger)
-            best[name] = [result["best_target_acc_epoch"], result["best_target_acc"]]
-            tag = f"acc/{name}_{names[name]}"
-            writer.add_scalar(tag + "_best_acc", result["best_target_acc"], epoch)
-            writer.add_scalar(tag + "_cur_acc", result["cur_target_acc"], epoch)
+        eval_batches = eval_epoch(evaluator, eval_sets, names, best, epoch, batch_size, writer,
+                                  logger, cls_eval)
 
         if best["test1"][1] > prev_best_t1:
             best_path = save_checkpoint(

@@ -4,18 +4,21 @@ Overall, per-class and mean-class accuracy and the average loss (the
 configured criterion's, per sample) over a loader. The last batch is
 zero-padded to the first batch's size and a ``valid`` mask drops the pad
 rows from every sum, as in the JAX package. ``eval_worker`` adds the
-best-accuracy tracking of the training loop.
+best-accuracy tracking of the training loop, ``eval_epoch`` runs it over the
+training loops' three test sets (``eval_datasets``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as Fn
 
 from sug_tpu_torch import resolve_device
+from sug_tpu_torch.data.datasets import DATASET_LIST, PointCloudDataset, create_single_dataset
+from sug_tpu_torch.data.sampler import BatchIterator
 from sug_tpu_torch.losses.classification import cross_entropy
 
 
@@ -96,3 +99,40 @@ def eval_worker(eval_dict: Dict, logger) -> Dict:
         logger.info(f"compared eval: {acc} and avg: {result['mean_class_acc']}")
     return {"dataset": dataset, "epoch": epoch, "best_target_acc": best_acc,
             "best_target_acc_epoch": best_epoch, "cur_target_acc": acc}
+
+
+def eval_datasets(source: str, num_points: int, model_name: str, data_root: Optional[str],
+              fixed_x_rotation: Optional[bool] = None
+              ) -> Tuple[Dict[str, str], Dict[str, PointCloudDataset]]:
+    """The training loops' eval sets: the source's test split ("source") and
+    the two other datasets' ("test1", "test2"). Returns ({key: dataset
+    name}, {key: dataset})."""
+    others = [d for d in DATASET_LIST if d != source]
+    names = {"source": source, "test1": others[0], "test2": others[-1]}
+    return names, {k: create_single_dataset(d, "test", pc_num=num_points, model=model_name,
+                                            data_root=data_root,
+                                            fixed_x_rotation=fixed_x_rotation)
+                   for k, d in names.items()}
+
+
+def eval_epoch(evaluator: Evaluator, eval_sets: Mapping[str, PointCloudDataset],
+               names: Mapping[str, str], best: Dict[str, List], epoch: int, batch_size: int,
+               writer, logger, cls_eval: bool = False) -> int:
+    """``eval_worker`` on one unshuffled pass of every eval set after
+    ``epoch``: ``best`` ({key: [epoch, acc]}) is updated in place and each
+    set's ``_best_acc`` and ``_cur_acc`` scalars written. Returns the count
+    of eval batches."""
+    eval_batches = 0
+    for name, dataset in eval_sets.items():
+        loader = BatchIterator(dataset, batch_size, shuffle=False, drop_last=False)
+        eval_batches += len(loader)
+        result = eval_worker({
+            "evaluator": evaluator, "dataloader": loader, "dataset": name,
+            "dataset_name": names[name], "epoch": epoch, "best_target_acc": best[name][1],
+            "best_target_acc_epoch": best[name][0], "cls_eval": cls_eval,
+        }, logger)
+        best[name] = [result["best_target_acc_epoch"], result["best_target_acc"]]
+        tag = f"acc/{name}_{names[name]}"
+        writer.add_scalar(tag + "_best_acc", result["best_target_acc"], epoch)
+        writer.add_scalar(tag + "_cur_acc", result["cur_target_acc"], epoch)
+    return eval_batches

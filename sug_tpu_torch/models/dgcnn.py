@@ -1,5 +1,5 @@
-"""DGCNN backbone with the SA-node module: counterpart of
-``sug_tpu/models/dgcnn.py``.
+"""DGCNN backbone with the SA-node module, and the standalone classifier
+without it: counterparts of ``sug_tpu/models/dgcnn.py``.
 
 Each EdgeConv block splits its Dense kernel W (2C, F) into the neighbour and
 centre halves W1 = W[:C], W2 = W[C:], so that the edge activation is
@@ -33,6 +33,8 @@ from torch import nn
 from sug_tpu_torch.models.adapt_node import SelfAdaptiveNodeModule
 from sug_tpu_torch.models.bn import (EPS, BatchNorm, GroupedNorm, check_groups,
                                      update_running, update_running_grouped)
+from sug_tpu_torch.models.heads import ClassifierHead
+from sug_tpu_torch.models.layers import flax_init_
 from sug_tpu_torch.models.precision import Mixed
 from sug_tpu_torch.ops.edgeconv import fused_edgeconv_reduce
 
@@ -114,10 +116,40 @@ class DGCNNGenerator(nn.Module):
         x2 = self.block2(x1)
         x_up, node_fea, node_off = self.sa_node(x2, pc, fps_start)
         x2 = self.reproject(x_up)
-        x3 = self.block3(x2)
-        x4 = self.block4(x3)
-        x5 = self.conv5(torch.cat([x1, x2, x3, x4], dim=-1))  # (B, N, 512)
-        x5 = Fn.leaky_relu(self.bn5(x5), negative_slope=0.2)
-        gmax = torch.amax(x5, dim=1)
-        gavg = torch.mean(x5, dim=1)
-        return torch.cat([gmax, gavg], dim=-1), node_fea, node_off
+        return pooled_features(self, x1, x2), node_fea, node_off
+
+
+def pooled_features(net: nn.Module, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+    """``block3``, ``block4``, ``conv5`` and ``bn5`` of ``net`` after the
+    first two levels' features, then the max and the mean over the points:
+    (B, 1024)."""
+    x3 = net.block3(x2)
+    x4 = net.block4(x3)
+    x5 = net.conv5(torch.cat([x1, x2, x3, x4], dim=-1))  # (B, N, 512)
+    x5 = Fn.leaky_relu(net.bn5(x5), negative_slope=0.2)
+    return torch.cat([torch.amax(x5, dim=1), torch.mean(x5, dim=1)], dim=-1)
+
+
+class DGCNNClassifier(nn.Module):
+    """The standalone DGCNN classifier: the generator's four EdgeConv blocks
+    without the SA-node (``block2`` feeds ``block3``), ``conv5``, ``bn5``,
+    the max and mean over the points, and the dgcnn ``ClassifierHead``.
+    ``forward`` returns (logits, the head's 256-d mid feature); train mode
+    draws the head's dropout masks from ``generator``. The constructor's
+    ``generator`` (CPU) draws the initial Dense kernels."""
+
+    def __init__(self, num_class: int = 10, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.block1 = EdgeConvBlock(3, 64)
+        self.block2 = EdgeConvBlock(64, 64)
+        self.block3 = EdgeConvBlock(64, 128)
+        self.block4 = EdgeConvBlock(128, 256)
+        self.conv5 = nn.Linear(512, 512, bias=False)
+        self.bn5 = BatchNorm(512)
+        self.classifier = ClassifierHead(num_class, "dgcnn")
+        flax_init_(self, generator)
+
+    def forward(self, pc: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        x1 = self.block1(pc)
+        return self.classifier(pooled_features(self, x1, self.block2(x1)), generator)

@@ -14,6 +14,21 @@ from sug_tpu_torch.models.layers import Dense, FCLayer
 VARIANTS = ("dgcnn", "relu", "ptran")
 
 
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator]) -> torch.Tensor:
+    """flax's ``nn.Dropout`` in train mode (``training``) with a non-zero
+    ``rate``, else the identity: a kept unit is scaled by ``1 / (1 -
+    rate)``, in the features' dtype. The masks come from ``generator``,
+    which train mode with a non-zero rate requires."""
+    if not training or rate == 0.0:
+        return x
+    if generator is None:
+        raise ValueError("train-mode dropout needs a torch.Generator")
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+
+
 class ClassifierHead(nn.Module):
     """1024 -> 512 -> 256 -> num_class. Returns (logits, the 256-d
     pre-dropout mid feature). ``variant``:
@@ -24,9 +39,8 @@ class ClassifierHead(nn.Module):
       is already 512-d (``ptran=True``).
 
     Dropout (rate ``dropout_rate``, after ``mlp1`` and after the mid
-    feature) runs in train mode only, as flax's ``nn.Dropout``: a kept unit
-    is scaled by ``1 / (1 - rate)``, in the features' dtype. Its masks come
-    from ``generator``, which train mode with a non-zero rate requires.
+    feature) runs in train mode only (``dropout``), its masks drawn from
+    ``generator``.
     Under the bf16 policy ``mlp1``, ``mlp2`` and the mid feature are bf16
     and ``mlp3`` promotes them to f32 logits, as in the JAX head."""
 
@@ -42,13 +56,7 @@ class ClassifierHead(nn.Module):
         self.dropout_rate = dropout_rate
 
     def dropout(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
-        if not self.training or self.dropout_rate == 0.0:
-            return x
-        if generator is None:
-            raise ValueError("ClassifierHead: train-mode dropout needs a torch.Generator")
-        keep_prob = 1.0 - self.dropout_rate
-        keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-        return torch.where(keep, x / keep_prob, torch.zeros_like(x))
+        return dropout(x, self.dropout_rate, self.training, generator)
 
     def forward(
         self, x: torch.Tensor, generator: Optional[torch.Generator] = None

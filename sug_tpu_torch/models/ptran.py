@@ -1,5 +1,5 @@
-"""Point Transformer (PTran) backbone and DG generator: counterpart of
-``sug_tpu/models/ptran.py``.
+"""Point Transformer (PTran) backbone, DG generator and standalone
+classifier: counterparts of ``sug_tpu/models/ptran.py``.
 
 Every ``VectorAttentionBlock`` runs its attention body (kNN, the delta and
 gamma MLPs over each point's k=16 neighbours, the per-channel softmax) in
@@ -15,6 +15,8 @@ and val reach the attention in bf16 and select its bf16 mode; ``fc2`` has no
 dtype there (:132, :162) and promotes, and so does the residual ``+
 features``; the backbone's ``fc1a``/``fc1b`` and the generator's
 ``point_mix`` stay f32; ``TransitionDown``'s ``ConvBN``s follow the policy.
+The classifier's ``fc2a``, ``fc2b`` and ``fc2c`` stay f32: they have no
+dtype there either (:298-302).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 from torch import nn
 
-from sug_tpu_torch.models.layers import ConvBN, Dense
+from sug_tpu_torch.models.layers import ConvBN, Dense, flax_init_
 from sug_tpu_torch.models.precision import Mixed
 from sug_tpu_torch.ops.geometry import (
     farthest_point_sample,
@@ -144,3 +146,28 @@ class PointTransformerGenerator(nn.Module):
         strided = levels[2][1][:, :, ::2]  # (B, N/16, 64): stride 2 over features
         node_fea = self.point_mix(strided.transpose(1, 2))  # Dense over the points
         return torch.mean(points, dim=1), node_fea, None
+
+
+class PointTransformerClassifier(nn.Module):
+    """The standalone PTran classifier: the backbone, the mean over the last
+    level's points, ``fc2a`` to 256 (the mid feature), relu, ``fc2b`` to 64,
+    relu, ``fc2c`` to ``num_class``. ``forward`` returns (logits,
+    mid_feature); it has no dropout, so ``generator`` is not read. Without
+    the generator's ``point_mix`` it takes any cloud size the kernels take;
+    every TransitionDown's FPS starts at index 0. The constructor's
+    ``generator`` (CPU) draws the initial Dense kernels."""
+
+    def __init__(self, num_class: int = 10, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.backbone = PointTransformerBackbone()
+        self.fc2a = nn.Linear(512, 256)
+        self.fc2b = nn.Linear(256, 64)
+        self.fc2c = nn.Linear(64, num_class)
+        flax_init_(self, generator)
+
+    def forward(self, pc: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+        points, _ = self.backbone(pc)
+        mid_feature = self.fc2a(torch.mean(points, dim=1))
+        x = torch.relu(self.fc2b(torch.relu(mid_feature)))
+        return self.fc2c(x), mid_feature

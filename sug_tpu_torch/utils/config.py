@@ -128,6 +128,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--max_ckpt_save_num", type=int, default=50)
     parser.add_argument("--fix_random_seed", action="store_true", default=False)
     parser.add_argument("--resume", type=str, default=None, help="checkpoint file to resume from")
+    parser.add_argument("--pretrained_model", type=str, default=None,
+                        help="checkpoint file whose weights start the run (train_source)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--set", dest="set_cfgs", default=None, nargs=argparse.REMAINDER,
                         help="set extra config keys [use in last position]")

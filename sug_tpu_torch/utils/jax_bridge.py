@@ -1,8 +1,9 @@
 """Carry the JAX package's weights into the port.
 
 ``state_dict_from_jax(variables)`` takes the ``{"params", "batch_stats"}``
-tree of ``sug_tpu``'s ``NetMDA`` (DGCNN, PTran or Pointnet), as nested dicts
-of numpy arrays, and returns the port's ``state_dict``. The port's modules
+tree of ``sug_tpu``'s ``NetMDA`` (DGCNN, PTran or Pointnet) or of one of its
+standalone classifiers (``make_classifier``: the same three), as nested
+dicts of numpy arrays, and returns the port's ``state_dict``. The port's modules
 are named after the JAX tree (PTran's ``g/backbone/transformer1/w_qs``,
 ``g/backbone/td0/mlp0/Dense_0``, ``g/point_mix``; PointNet's
 ``g/trans_net1/ConvBN_0``, ``g/conv1`` ... ``g/conv5``, ``g/bn1``,

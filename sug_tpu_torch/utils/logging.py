@@ -52,6 +52,17 @@ def exp_log_folder_creator(cfg, extra_tag: Optional[str] = None):
     return output_dir, ckpt_dir
 
 
+def open_run(cfg, source: str, log_stem: str):
+    """The run's folders (``exp_log_folder_creator`` tagged by ``source``),
+    a logger writing to ``<output_dir>/<log_stem><timestamp>.txt`` too, and a
+    ``MetricsWriter`` under ``<output_dir>/metrics``. Returns (ckpt_dir,
+    logger, writer)."""
+    output_dir, ckpt_dir = exp_log_folder_creator(cfg, extra_tag=source)
+    log_name = log_stem + datetime.now().strftime("%Y%m%d-%H%M%S") + ".txt"
+    logger = create_logger(log_file=os.path.join(output_dir, log_name))
+    return ckpt_dir, logger, MetricsWriter(os.path.join(output_dir, "metrics"))
+
+
 class MetricsWriter:
     """Scalar metrics as JSON lines, ``{"tag", "value", "step"}``, in
     ``<log_dir>/metrics.jsonl``."""

@@ -7,6 +7,7 @@ from __future__ import annotations
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from sug_tpu_torch.utils.jax_bridge import load_jax_variables, state_dict_from_jax
@@ -92,3 +93,34 @@ def assert_rel_l2(got, want, bound):
     name = max(worst, key=worst.get)
     print(f"largest relative L2 error: {worst[name]:.3e} ({name})")
     assert worst[name] <= bound, (name, worst[name])
+
+
+def port_weights_as_jax(jmodel, port_state, *init_args, seed: int = 5, **init_kwargs):
+    """A JAX variable tree of ``jmodel`` filled from a port ``state_dict``
+    (the tree's shapes from tracing the JAX init, which spares compiling
+    it), then randomised (``randomize_variables`` with ``seed``)."""
+    from sug_tpu_torch.utils.jax_bridge import torch_key
+
+    shapes = jax.eval_shape(lambda: jmodel.init(
+        {"params": jax.random.key(0), "dropout": jax.random.key(1)}, *init_args, **init_kwargs))
+
+    def leaf(path, shape):
+        names = tuple(k.key for k in path)
+        value = port_state[torch_key(names[1:])].numpy()
+        value = value.T if names[-1] == "kernel" else value
+        assert value.shape == shape.shape, names
+        return value
+
+    return randomize_variables(jax.tree_util.tree_map_with_path(leaf, dict(shapes)), seed=seed)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Run a test module's PyTorch on one CPU thread, then restore the
+    count. These modules run many small ops at B=4..8, N=128; with one
+    intra-op pool per pytest worker (tier-1 runs six) the pools oversubscribe
+    the cores, and such ops then take tens of times longer than alone."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)

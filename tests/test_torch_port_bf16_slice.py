@@ -70,6 +70,7 @@ from tests.test_torch_port_bf16 import (
 )
 from tests.test_torch_port_dg_step import LOSS_RTOL
 from tests.test_torch_port_stacked import OUT_REL_L2, _variables
+from tests._torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 B, N = 8, 128
 GATE_SHIFT = 3.0

@@ -65,6 +65,7 @@ from tests._torch_port_common import (
     jax_stats_by_name,
     randomize_variables,
 )
+from tests._torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 B, N = 4, 128
 LOSS_RTOL = 1e-4

@@ -30,6 +30,7 @@ from sug_tpu_torch.data.datasets import PointCloudDataset, make_synthetic_pointd
 from sug_tpu_torch.engine.dg_trainer import DGTrainer
 from sug_tpu_torch.ops import edgeconv
 from sug_tpu_torch.utils.config import parser_config
+from tests._torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)

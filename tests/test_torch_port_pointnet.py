@@ -63,6 +63,7 @@ from tests._torch_port_common import (
     t,
 )
 from tests.test_torch_port_dg_step import _assert_metrics, _identity_dropout
+from tests._torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 B, N = 4, 128
 TOL = dict(rtol=1e-4, atol=1e-4)

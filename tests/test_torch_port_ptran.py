@@ -27,6 +27,7 @@ from sug_tpu_torch.models.heads import ClassifierHead
 from sug_tpu_torch.models.net_mda import NetMDA
 from sug_tpu_torch.models.ptran import TransitionDown, VectorAttentionBlock
 from tests._torch_port_common import port_module, randomize_variables, t
+from tests._torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 OUTPUTS = ("logits1", "logits2", "sem1", "sem2", "global_feat", "node_flat", "node_attn",

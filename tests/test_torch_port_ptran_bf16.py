@@ -98,6 +98,7 @@ from tests.test_torch_port_bf16 import (
 from tests.test_torch_port_bf16_slice import _open_gates
 from tests.test_torch_port_dg_step import REL_L2
 from tests.test_torch_port_stacked import OUT_REL_L2, _variables
+from tests._torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 B, N = 4, 128
 D_POINTS, D_MODEL, K = 64, 512, 16

@@ -31,6 +31,7 @@ from sug_tpu_torch.engine.checkpoint import load_checkpoint
 from sug_tpu_torch.models.net_mda import NetMDA
 from sug_tpu_torch.utils.jax_bridge import state_dict_from_jax, torch_key
 from tests._torch_port_common import randomize_variables, t
+from tests._torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 N_POINTS = 128

@@ -70,6 +70,7 @@ from tests.test_torch_port_dg_step import (
     _identity_dropout,
     _torch_batch,
 )
+from tests._torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 B, N = 4, 64
 FWD_TOL = dict(rtol=1e-3, atol=1e-3)

@@ -50,12 +50,12 @@ import bench
 from sug_tpu.engine import dg_trainer as jdt
 from sug_tpu.models import bn as jbn
 from sug_tpu_torch.engine import dg_trainer as tdt
-from sug_tpu_torch.utils.jax_bridge import load_jax_variables, torch_key
+from sug_tpu_torch.utils.jax_bridge import load_jax_variables
 from tests._torch_port_common import (
     assert_rel_l2,
     jax_grads_by_name,
     jax_stats_by_name,
-    randomize_variables,
+    port_weights_as_jax,
 )
 from tests.test_torch_port_dg_step import (
     REL_L2,
@@ -64,6 +64,7 @@ from tests.test_torch_port_dg_step import (
     _jax_fps,
     _port_grads,
 )
+from tests._torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 B, N = 4, 128
 OUT_REL_L2 = 1e-3
@@ -82,21 +83,9 @@ def _variables(model_name):
     """A JAX variable tree of ``NetMDA(model_name)`` filled from the port's
     initial weights (the tree's shapes from tracing the JAX init, which
     spares compiling it), then randomised."""
-    jmodel = jdt.NetMDA(model_name=model_name, num_class=10)
-    shapes = jax.eval_shape(lambda: jmodel.init(
-        {"params": jax.random.key(0), "dropout": jax.random.key(1)},
-        jnp.zeros((B, N, 3)), True, domain="both"))
-    port = tdt.NetMDA(model_name, generator=torch.Generator().manual_seed(SEED),
-                      num_points=N).state_dict()
-
-    def leaf(path, shape):
-        names = tuple(k.key for k in path)
-        value = port[torch_key(names[1:])].numpy()
-        value = value.T if names[-1] == "kernel" else value
-        assert value.shape == shape.shape, names
-        return value
-
-    return randomize_variables(jax.tree_util.tree_map_with_path(leaf, dict(shapes)), seed=5)
+    port = tdt.NetMDA(model_name, generator=torch.Generator().manual_seed(SEED), num_points=N)
+    return port_weights_as_jax(jdt.NetMDA(model_name=model_name, num_class=10),
+                               port.state_dict(), jnp.zeros((B, N, 3)), True, domain="both")
 
 
 def _jax_trainer(cfg, model_name):

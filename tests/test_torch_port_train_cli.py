@@ -21,6 +21,7 @@ import torch
 
 from sug_tpu_torch import train_dg_single_gpu
 from sug_tpu_torch.data.datasets import DATASET_LIST, make_synthetic_pointda
+from tests._torch_port_common import one_torch_thread  # noqa: F401  (autouse)
 
 YAML = "tools/cfgs/cfgs_local/DG_unified_loss.yaml"
 N_POINTS = 128
