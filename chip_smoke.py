@@ -49,7 +49,8 @@ ends the run with a non-zero exit; the phases, in order:
    zeros), its (B, N) mins and the chamfer (B,) of two launches; FPS index for
    index from random starts at B=64 at the SA-node's (N, npoint) = (1024, 64)
    and (4096, 64), PTran's four levels (1024, 256), (256, 64), (64, 16),
-   (16, 4), the ragged (1000, 250) and (4100, 64), (16384, 512), and at
+   (16, 4), PointNet++'s two set abstractions (1024, 512) and (512, 128),
+   the ragged (1000, 250) and (4100, 64), (16384, 512), and at
    small B on clusters of blocks (65536, 64) and (131072, 16), each on
    random clouds and on a lattice with duplicate points, and on zero-padded
    clouds, two launches bit-identical; N = 131073 refused; FPS under
@@ -121,10 +122,21 @@ ends the run with a non-zero exit; the phases, in order:
    ``values_bf16`` mode; one source-only ``_loss`` of the DGCNN classifier
    and one naive alternating step of DGCNN at B=8 on the card against the
    CPU (the losses, the source loss's and phase A's gradients, phase B's
-   loss). Every DG path runs
-   the FPS kernel (DGCNN's and PointNet's SA-node once a forward, PTran's
-   four TransitionDowns), the DGCNN and PointNet classifiers none; no path
-   at 1024 points launches min-dists;
+   loss) (the PointNet++ classifier is trained and served in the same runs);
+   then PointNet++ (4n): ``train_dg_single_gpu --set Model Pointnet2``
+   (batch 64, 1024 points) for one epoch and ``--resume`` for a second,
+   ``infer --model Pointnet2 --dg``, one PointNet++ DG ``_loss`` (losses and
+   gradients) and one MSG segmenter forward at B=8 on the card against the
+   CPU, each device on its own ball queries unless the limits fail, then
+   the CPU on the card's with each row chosen otherwise held to a boundary
+   tie (``card_ball_groups``, ``ball_tie_verdict``); and a synthetic
+   reference-repo ``.pth`` for each backbone of ``CONVERTED`` run through
+   ``python -m sug_tpu_torch.convert_reference_checkpoint`` and served by
+   ``infer --dg``, logits against the CPU. Every DG path runs the FPS
+   kernel (DGCNN's and PointNet's SA-node once a forward, PTran's four
+   TransitionDowns, PointNet++'s two set abstractions), PointNet++'s and
+   PTran's classifiers too, the DGCNN and PointNet classifiers none; no
+   path at 1024 points launches min-dists;
 5. times, with CUDA events after warm-up: each kernel shape beside its bound,
    its plain version and, for min-dists, ``torch.cdist`` and ``amin``; FPS
    at every shape above, through its launcher, the wrapper and the
@@ -139,13 +151,14 @@ ends the run with a non-zero exit; the phases, in order:
    outside them, the weight bytes the design asks of L2 (a count from the
    grid and the cluster size, not a reading of the card), and each backward
    kernel's share of the backward; the
-   DGCNN, PTran and PointNet (N=1024 and 4096) inference forwards per batch of
-   64, and the DGCNN, PTran and PointNet DG train steps at B=64+64 (DGCNN at
-   N=1024 and 4096, PTran at 1024, PointNet at 1024 and 4096) with their
+   DGCNN, PTran, PointNet (N=1024 and 4096) and PointNet++ inference
+   forwards per batch of 64, and the DGCNN, PTran, PointNet and PointNet++
+   DG train steps at B=64+64 (DGCNN at N=1024 and 4096, PTran and
+   PointNet++ at 1024, PointNet at 1024 and 4096) with their
    peak memory; each with a ``torch.profiler`` breakdown of device time by
    kernel (its busy share and kernels a step), and its launches counted as
    ``MAIN_PATHS`` says. The cells of ``AB_CELLS`` (DGCNN at 1024 and 4096
-   points, PTran at 1024, PointNet at 4096) run the step with the
+   points, PTran and PointNet++ at 1024, PointNet at 4096) run the step with the
    sequential and the stacked forward in turns on one trainer, sequential,
    stacked, stacked, sequential, and a summary lists each run; the cells of
    ``BF16_CELLS`` (DGCNN and PointNet at 1024 and 4096 points, PTran at
@@ -157,7 +170,7 @@ ends the run with a non-zero exit; the phases, in order:
    levels, beside their bounds (the D×D products at the bf16 peak, q, key,
    val at 2 bytes) and bf16 plain versions, the backward split by kernel;
    last, the source-only step at B=64 and the eval forward per batch of 64
-   of the three classifiers, and the alternating step at B=64+64 (naive
+   of the four classifiers, and the alternating step at B=64+64 (naive
    DGCNN, uda PointNet), each with its busy share, kernels a step and peak
    memory, its launches counted as ``MAIN_PATHS`` says.
 
@@ -384,13 +397,14 @@ MIN_DISTS_SHAPES = [(4096, 4096), (1024, 1024), (3000, 2100), (2100, 3000)]
 # clouds). A chamfer is a mean of such mins in each direction.
 MIN_DIST_REL = 1e-6
 # FPS cases (B, N, npoint), indices exact: the SA-node's at 1024 and 4096
-# points, PTran's four TransitionDowns at 1024 points, ragged clouds, a
+# points, PTran's four TransitionDowns at 1024 points, PointNet++'s two set
+# abstractions (512 of 1024 points, then 128 of 512), ragged clouds, a
 # 2-block cluster over 512 steps, and clusters of up to 8 blocks at small B
 # (the plain loop's steps over such clouds take the time there);
 # FPS_REFUSED points are more than the launcher takes
 FPS_SHAPES = [(B, 1024, 64), (B, 1024, 256), (B, 256, 64), (B, 64, 16), (B, 16, 4),
-              (B, 1000, 250), (B, 4096, 64), (B, 4100, 64), (B, 16384, 512), (4, 65536, 64),
-              (2, 131072, 16)]
+              (B, 1024, 512), (B, 512, 128), (B, 1000, 250), (B, 4096, 64), (B, 4100, 64),
+              (B, 16384, 512), (4, 65536, 64), (2, 131072, 16)]
 FPS_REFUSED = 131073
 # the EdgeConv kernels at the N=4096 shapes of DGCNN blocks 1 and 4 and of
 # the SA-node (every backbone's), at B=64; the backward's check at block 4
@@ -456,6 +470,12 @@ MAIN_PATHS = {
     # the twin-head forward of the DG paths.
     ("DGCNN", N_POINTS, "alternating"): ((20, 16, 0, 0, 4, 0), (5, 0, 0, 0, 1, 0)),
     ("Pointnet", N_POINTS, "alternating"): ((4, 4, 0, 0, 4, 0), (1, 0, 0, 0, 1, 0)),
+    # PointNet++ (DG and classifier alike): two FPS a forward, sa1's 512 of
+    # 1024 points and sa2's 128 of 512 (sa3 groups all), and no other
+    # kernel: its ball queries, gathers and maxima are plain PyTorch
+    ("Pointnet2", N_POINTS): ((0, 0, 0, 0, 4, 0), (0, 0, 0, 0, 2, 0)),
+    ("Pointnet2", N_POINTS, "stacked"): ((0, 0, 0, 0, 2, 0), (0, 0, 0, 0, 2, 0)),
+    ("Pointnet2", N_POINTS, "source"): ((0, 0, 0, 0, 2, 0), (0, 0, 0, 0, 2, 0)),
 }
 # the new trainers' configs: the source-only one (PointNet, with --set Model
 # for the others) and the naive-MMD DG baseline (DGCNN)
@@ -473,7 +493,10 @@ METHODS:
 BN_GROUPS_SET = ("MODEL_CFG.BN_SEMANTICS", "per_replica", "MODEL_CFG.BN_GROUPS", "2")
 GRL_LAMBDA = 0.7  # the card-vs-CPU loss's λ, well inside the loop's sine ramp
 # phase 5's A/B cells, sequential against stacked in turns in one process
-AB_CELLS = (("DGCNN", N_POINTS), ("PTran", N_POINTS), ("Pointnet", N_LARGE), ("DGCNN", N_LARGE))
+AB_CELLS = (("DGCNN", N_POINTS), ("PTran", N_POINTS), ("Pointnet", N_LARGE), ("DGCNN", N_LARGE),
+            ("Pointnet2", N_POINTS))
+# the backbones the reference-checkpoint converter's entry point takes
+CONVERTED = ("Pointnet", "DGCNN", "Pointnet2")
 # The bf16 policy (PRECISION: bf16): the EdgeConv kernels' values_bf16 mode
 # (DGCNN and PointNet), instantiated in the same sources, as (label, kernel
 # name, source); the --set that turns it on; phase 5's cells that run the
@@ -1548,16 +1571,20 @@ def near_tie_verdict(tag, differ, allowed=None, near_tie=NEAR_TIE_REL, policy=""
             f"k-th distances within {widest:.3e} of |q|² + |key|²")
 
 
-def held_card_against_cpu(tag, case, replay):
+def held_card_against_cpu(tag, case, replay, replayer=None, verdict=None,
+                          replayed="EdgeConv neighbours"):
     """``case(device)`` -> (losses, gradients or None) pairs, on the card and
     on the CPU plain path, every loss held to MAX_LOSS_REL and every
     gradient leaf to MAX_GRAD_REL_L2. With ``replay`` the CPU runs on the
-    card's EdgeConv neighbours (``card_neighbours``), each row it would
-    choose otherwise held to a near tie (``near_tie_verdict``). Without it
-    each device chooses its own neighbours first, and only where the limits
-    fail does the CPU run again on the card's."""
+    card's EdgeConv neighbours (``replayer``, by default ``card_neighbours``;
+    ``card_ball_groups`` replays PointNet++'s ball queries), each row it
+    would choose otherwise held to a near tie (``verdict``, by default
+    ``near_tie_verdict``). Without it each device chooses its own neighbours
+    first, and only where the limits fail does the CPU run again on the
+    card's."""
+    replayer, verdict = replayer or card_neighbours, verdict or near_tie_verdict
     calls, differ = [], [0, 0, 0.0, 0]
-    with card_neighbours("cuda", calls, None, differ):
+    with replayer("cuda", calls, None, differ):
         card = case("cuda")
 
     def worst(cpu):
@@ -1578,11 +1605,11 @@ def held_card_against_cpu(tag, case, replay):
         if over:
             print(f"{tag}, card vs CPU on each device's own neighbours: {len(over)} outside "
                   f"their limits (worst {max(over)[1]} at {max(over)[0]:.3e}); again on the "
-                  "card's neighbours", flush=True)
+                  f"card's {replayed}", flush=True)
     if over:
-        with card_neighbours("cpu", calls, torch.arange(CARD_B), differ):
+        with replayer("cpu", calls, torch.arange(CARD_B), differ):
             over, within = worst(case("cpu"))
-        on = f"on the card's EdgeConv neighbours ({near_tie_verdict(tag, differ)})"
+        on = f"on the card's {replayed} ({verdict(tag, differ)})"
     if over:
         fail(f"{tag} card vs CPU {on}: {len(over)} outside their limits, the worst " + "; ".join(
             f"{name} {rel:.3e} (> {limit})" for rel, name, limit in sorted(over, reverse=True)[:5]))
@@ -1643,6 +1670,163 @@ def new_paths_card_against_cpu(baseline_cfg, rng):
                                  f"N={N_POINTS} (phase A's losses and gradients, phase B's loss)",
                                  alternating, replay=False)
     print(f"  the card's losses: {card[0][0]}, {card[1][0]}", flush=True)
+
+
+def ball_tie_gaps(xyz, new_xyz, radius, a, b):
+    """For the rows where the ball-query groups ``a`` and ``b`` (B, S,
+    nsample) of centroids ``new_xyz`` (B, S, 3) among ``xyz`` (B, N, 3)
+    differ: at the first position where they differ, one of the two points
+    there lies in one device's ball and not in the other's, and its
+    |d² − r²| / r² in float64 is the row's gap (the smaller of the two
+    points'). Returns the (R,) gaps of the R differing rows."""
+    bi, si = (a != b).any(-1).nonzero(as_tuple=True)
+    first = (a[bi, si] != b[bi, si]).int().argmax(-1)
+    centre = new_xyz[bi, si].double()
+    r2 = float(radius) ** 2
+    gaps = [((xyz[bi, idx[bi, si, first]].double() - centre).square().sum(-1) - r2).abs() / r2
+            for idx in (a, b)]
+    return torch.minimum(*gaps)
+
+
+@contextlib.contextmanager
+def card_ball_groups(device, calls, order, differ):
+    """``card_neighbours`` for PointNet++'s ball queries: on the card,
+    record the group indices of every ``query_ball_point`` into ``calls``;
+    on the CPU, return them in the same order (the batch in ``order``),
+    after measuring each row where the CPU's own query chose another group
+    (``ball_tie_gaps``). ``differ`` gathers [rows, rows the CPU chose
+    otherwise, the largest gap over r², 0]."""
+    from sug_tpu_torch.models import pointnet2
+    from sug_tpu_torch.ops import geometry
+
+    ball, replay = geometry.query_ball_point, iter(calls)
+
+    def recording(radius, nsample, xyz, new_xyz):
+        out = ball(radius, nsample, xyz, new_xyz)
+        calls.append(out.cpu())
+        return out
+
+    def replaying(radius, nsample, xyz, new_xyz):
+        own = ball(radius, nsample, xyz, new_xyz)
+        card = next(replay)
+        rows = order if len(card) == len(order) else torch.cat([order, order + len(order)])
+        card = card[rows].to(own.device)
+        gaps = ball_tie_gaps(xyz, new_xyz, radius, card, own)
+        differ[0] += own.shape[0] * own.shape[1]
+        differ[1] += len(gaps)
+        differ[2] = max([differ[2], *gaps.tolist()])
+        return card
+
+    patched = recording if device == "cuda" else replaying
+    geometry.query_ball_point = pointnet2.query_ball_point = patched
+    try:
+        yield
+    finally:
+        geometry.query_ball_point = pointnet2.query_ball_point = ball
+
+
+def ball_tie_verdict(tag, differ):
+    """Fail unless every row on which the CPU's ball query chose another
+    group than the card's is a boundary tie, its point within NEAR_TIE_REL
+    of the radius in d² (|d² − r²| ≤ NEAR_TIE_REL · r²), and at most
+    1 − MIN_SET_AGREEMENT of the rows differ. Returns the agreement in
+    words."""
+    rows, chosen_otherwise, widest, _ = differ
+    if widest > NEAR_TIE_REL:
+        fail(f"{tag} card vs CPU: where the CPU's ball query chose another group, the point at "
+             f"the first difference lies {widest:.3e} of r² from the radius (> {NEAR_TIE_REL})")
+    if chosen_otherwise > (1.0 - MIN_SET_AGREEMENT) * rows:
+        fail(f"{tag} card vs CPU: the CPU's ball query chose other groups on {chosen_otherwise} "
+             f"of {rows} rows (more than {1.0 - MIN_SET_AGREEMENT:.1%})")
+    return (f"the CPU's ball query chose another group on {chosen_otherwise} of {rows} rows, "
+            f"each point at the first difference within {widest:.3e} of r² of the radius")
+
+
+def pointnet2_card_against_cpu(cfg, rng):
+    """At B=``CARD_B`` with the same weights, batch and FPS starts and no
+    dropout, on the card and on the CPU plain path
+    (``held_card_against_cpu``, each device on its own ball queries unless
+    the limits fail, then the CPU on the card's, ``card_ball_groups``): one
+    PointNet++ DG ``_loss(train=True)``, its losses with the MMD losses on
+    and off and its gradients with them off; and one eval forward of the
+    MSG segmenter (seeded weights, random BN statistics), its features held
+    as a gradient leaf and their mean as a loss."""
+    from sug_tpu_torch.data.datasets import PointCloudDataset, make_synthetic_pointda
+    from sug_tpu_torch.engine.dg_trainer import DGTrainer
+    from sug_tpu_torch.models.pointnet2 import PointNet2MSGSegmenter
+
+    pts, labels = make_synthetic_pointda(num_per_class=2, num_points=N_POINTS, seed=7)
+    ds = PointCloudDataset("modelnet", pts, labels, num_points=N_POINTS, model="Pointnet2")
+    fps = [torch.from_numpy(rng.integers(0, N_POINTS, CARD_B)) for _ in range(2)]
+
+    def batch(dev):
+        return [torch.from_numpy(a).to(dev) for a in
+                (ds.pts[:CARD_B], ds.labels[:CARD_B].astype(np.int64),
+                 ds.pts[-CARD_B:], ds.labels[-CARD_B:].astype(np.int64))]
+
+    def dg(dev):
+        tr = DGTrainer(cfg, model_name="Pointnet2", augment=False, device=dev, seed=0)
+        tr.model.c1.dropout_rate = tr.model.c2.dropout_rate = 0.0
+        out = []
+        for mmd_on in (True, False):
+            total, metrics = tr._loss(*batch(dev), *(f.to(dev) for f in fps), mmd_on=mmd_on,
+                                      train=True)
+            out.append(({f"{k} (mmd {mmd_on})": v.item() for k, v in metrics.items()},
+                        None if mmd_on else grads_by_name(tr, tr.grads(total))))
+        return out
+
+    def segmenter(dev):
+        model = PointNet2MSGSegmenter(generator=torch.Generator().manual_seed(3))
+        randomize_bn(model, torch.Generator().manual_seed(4))
+        with torch.no_grad():
+            out = model.eval().to(dev)(batch(dev)[0]).double().cpu()
+        if out.shape != (CARD_B, N_POINTS, 256) or not torch.isfinite(out).all():
+            fail(f"MSG segmenter on {dev}: features {tuple(out.shape)}, finite "
+                 f"{bool(torch.isfinite(out).all())}")
+        return [({"mean feature": out.mean().item()}, {"features": out})]
+
+    for tag, case in ((f"Pointnet2 DG _loss(train=True) at B={CARD_B}, N={N_POINTS}", dg),
+                      (f"Pointnet2 MSG segmenter eval forward at B={CARD_B}, N={N_POINTS}",
+                       segmenter)):
+        held_card_against_cpu(tag, case, replay=False, replayer=card_ball_groups,
+                              verdict=ball_tie_verdict, replayed="ball-query groups")
+
+
+def converted_serving(infer, rng, dev):
+    """For each backbone of ``CONVERTED``: a synthetic ``.pth`` under the
+    reference repo's key names (``synthetic_reference_state_dict``), wrapped
+    under ``state_dict``, converted by ``python -m
+    sug_tpu_torch.convert_reference_checkpoint`` in a child process, and its
+    ``.pt`` served by ``infer --dg`` on the card (``infer_runs``, launches
+    as ``MAIN_PATHS`` says) with the logits of 16 clouds against the CPU
+    plain path. Returns the summed counts."""
+    from sug_tpu_torch.data.datasets import PointCloudDataset
+    from sug_tpu_torch.models.net_mda import ensemble_logits
+    from sug_tpu_torch.utils.torch_convert import synthetic_reference_state_dict
+
+    total = dict.fromkeys(COUNTERS, 0)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_convert_") as tmp:
+        for seed, model_name in enumerate(CONVERTED):
+            pth, pt = (os.path.join(tmp, f"{model_name}.{ext}") for ext in ("pth", "pt"))
+            sd = synthetic_reference_state_dict(model_name, seed=seed)
+            torch.save({"state_dict": {k: torch.from_numpy(v) for k, v in sd.items()}}, pth)
+            child = subprocess.run(
+                [sys.executable, "-m", "sug_tpu_torch.convert_reference_checkpoint", "--ckpt",
+                 pth, "--model", model_name, "--out", pt],
+                cwd=HERE, capture_output=True, text=True, timeout=300)
+            print(f"convert_reference_checkpoint --model {model_name}: exit {child.returncode}, "
+                  f"{child.stdout.strip()}", flush=True)
+            if child.returncode != 0:
+                fail(f"convert_reference_checkpoint {model_name}: {child.stderr[-600:]}")
+            got, raw, preds = infer_runs(infer, pt, model_name, rng, tmp, B)
+            total = {k: total[k] + got[k] for k in COUNTERS}
+            first = torch.from_numpy(
+                PointCloudDataset("modelnet", raw[:16], np.zeros(16), num_points=N_POINTS).pts)
+            with torch.no_grad():
+                card = ensemble_logits(infer.load_model(model_name, pt, dev), first.to(dev)).cpu()
+                cpu = ensemble_logits(infer.load_model(model_name, pt, torch.device("cpu")), first)
+            check_logits(f"{model_name} converted from a reference .pth", card, cpu, preds)
+    return total
 
 
 def time_cell(what, model_name, variant, fn, iters, clouds, smi):
@@ -2871,6 +3055,24 @@ def main() -> None:
     print(f"source-only and alternating paths, phase 4: {time.perf_counter() - t_new:.1f} s",
           flush=True)
 
+    # 4n. PointNet++ (its classifier ran in 4m): the DG trainer through its
+    # front door, one epoch then --resume; infer --dg; one DG loss and one MSG
+    # segmenter forward at B=8 on the card against the CPU; reference .pth
+    # files converted by the entry point and served by infer --dg
+    t_pn2 = time.perf_counter()
+    rng16b = np.random.default_rng(161)  # 4n's own, so the later draws stay as they were
+    got, _ = train_and_resume(train_dg_single_gpu.main, rng16b, "Pointnet2")
+    fps_launches += got["fps"]
+    launches, pn2_model, pn2_batch = serving_run(infer, "Pointnet2", 8, rng16b, dev, 2 * B)
+    fps_launches += launches["fps"]
+    _, pn2_cfg = parser_config(["--cfg", YAML, "--set", "Model", "Pointnet2"])
+    pointnet2_card_against_cpu(pn2_cfg, rng16b)
+    got = converted_serving(infer, rng16b, dev)
+    fwd_launches += got["edgeconv_fwd"]
+    fps_launches += got["fps"]
+    print(f"PointNet++ and the converted checkpoints, phase 4: {time.perf_counter() - t_pn2:.1f} s",
+          flush=True)
+
     # 5. times
     print(f"times (CUDA events), card: {smi}", flush=True)
     entry = {"name": "edgeconv_fwd", "route": "cuda",
@@ -3125,6 +3327,25 @@ def main() -> None:
         check_launches(f"Pointnet inference forward N={n} ({policy})", "Pointnet", n, 0, 15)
     del pn_model, pn_bf16, pn_batch, pn_batch_1024
 
+    # the PointNet++ inference forward per batch of 64 (the serving model of 4n)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        fwd_ms = timed_ms(lambda: ensemble_logits(pn2_model, pn2_batch), iters=10)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"forward (NetMDA Pointnet2 eval, ensemble logits), B={B}, N={N_POINTS}: {fwd_ms:.3f} ms "
+          f"per batch, {B / fwd_ms * 1e3:.1f} clouds/s; peak device memory {peak / 2**20:.1f} MiB "
+          f"({(peak - held) / 2**20:.1f} MiB above what the script held before); card {smi}",
+          flush=True)
+    with torch.no_grad():
+        profile_device(lambda: ensemble_logits(pn2_model, pn2_batch), "Pointnet2 inference forward",
+                       fwd_ms)
+    # 2 warm-up, 10 timed and 3 profiled forwards
+    check_launches("Pointnet2 inference forward", "Pointnet2", N_POINTS, 0, 15)
+    del pn2_model, pn2_batch
+
     # the DG train steps: B=64 source + 64 target clouds, full MSA/SDA loss,
     # augmentation on; bench.py's flagship shape (N=1024) for each model, and
     # the large-N slice's N=4096 for PointNet (the shipped config) and DGCNN
@@ -3173,7 +3394,8 @@ def main() -> None:
                                             ("PTran", ptran_cfg, 3, N_POINTS),
                                             ("Pointnet", pn_cfg, 5, N_LARGE),
                                             ("Pointnet", pn_cfg, 5, N_POINTS),
-                                            ("DGCNN", cfg, 3, N_LARGE)):
+                                            ("DGCNN", cfg, 3, N_LARGE),
+                                            ("Pointnet2", pn2_cfg, 5, N_POINTS)):
         trainer = DGTrainer(model_cfg, model_name=model_name, device=dev, seed=0, num_points=n)
         inner = ([(True, False)] if (model_name, n) in AB_CELLS else []) + (
             [(False, True)] if (model_name, n) in BF16_CELLS else [])

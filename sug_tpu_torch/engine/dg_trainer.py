@@ -32,10 +32,11 @@ params, their gradients and the optimizer's moments stay f32. The heads'
 logits are f32; their 256-d mid features are bf16, as in the JAX package,
 and so is what the sem alignments other than ``SOFT_MMD`` compute from them.
 
-``model_name`` is "DGCNN", "PTran" or "Pointnet"; PTran's vector attention
-runs its bf16 mode under the policy. What the port does not have yet (the
-other backbones, with the KPConv regularizer) raises
-``NotImplementedError`` naming ROADMAP.md.
+``model_name`` is "DGCNN", "PTran", "Pointnet" or "Pointnet2"; PTran's
+vector attention runs its bf16 mode under the policy, and Pointnet2 refuses
+the policy (``NotImplementedError``). What the port does not have yet
+(KPConv, with its regularizer) raises ``NotImplementedError`` naming
+ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -115,7 +116,7 @@ class DGTrainer:
     the dropout masks. ``seed`` seeds the initial weights (drawn on the CPU,
     so the same on every device) and the generator. ``num_points`` is the
     cloud size a PTran model is built for (its ``point_mix``); DGCNN and
-    Pointnet take any. ``bn_groups`` is the BN group count the config asked
+    Pointnet take any, Pointnet2 any from 512. ``bn_groups`` is the BN group count the config asked
     for, set on every BN of the model, and ``compute_dtype`` the precision
     policy's (None: f32; ``torch.bfloat16``), set on its layers."""
 

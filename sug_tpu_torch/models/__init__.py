@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-CLASSIFIERS = ("DGCNN", "PTran", "Pointnet")
+CLASSIFIERS = ("DGCNN", "PTran", "Pointnet", "Pointnet2")
 
 
 def make_classifier(model_name: str, num_class: int = 10,
@@ -17,9 +17,8 @@ def make_classifier(model_name: str, num_class: int = 10,
     """The standalone classifier of ``model_name``, as the source-only
     trainer and ``infer`` without ``--dg`` build it; ``generator`` (CPU)
     draws its initial Dense kernels. Its ``forward(pc, generator=None)``
-    returns (logits, mid_feature). PointNet++ and KPConv raise
-    ``NotImplementedError``; an unknown name raises it too, as in the JAX
-    package."""
+    returns (logits, mid_feature). KPConv raises ``NotImplementedError``;
+    an unknown name raises it too, as in the JAX package."""
     if model_name == "Pointnet":
         from sug_tpu_torch.models.pointnet import PointNetClassifier
 
@@ -33,8 +32,9 @@ def make_classifier(model_name: str, num_class: int = 10,
 
         return PointTransformerClassifier(num_class, generator=generator)
     if model_name == "Pointnet2":
-        raise NotImplementedError("the PointNet++ classifier is not ported yet; it is queued in "
-                                  "ROADMAP.md (item 16)")
+        from sug_tpu_torch.models.pointnet2 import PointNet2Classifier
+
+        return PointNet2Classifier(num_class, generator=generator)
     if model_name == "KPConv":
         raise NotImplementedError("the KPConv classifier is not ported yet; it is queued in "
                                   "ROADMAP.md (item 17)")

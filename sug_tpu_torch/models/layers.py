@@ -126,6 +126,13 @@ class TransformNet(nn.Module):
         return x.reshape(-1, self.K, self.K) + torch.eye(self.K, dtype=x.dtype, device=x.device)
 
 
+def maxpool1d_strided(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """Max pooling along axis 1 of (B, L, C): windows of ``kernel`` rows
+    every ``stride`` rows, (B, (L − kernel) // stride + 1, C). A tie splits
+    the gradient evenly, as the JAX max does."""
+    return torch.amax(x.unfold(1, kernel, stride), dim=-1)
+
+
 class _GradReverse(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, lambd):

@@ -1,10 +1,11 @@
 """NetMDA, the twin-head DG model: counterpart of
-``sug_tpu/models/net_mda.py`` for ``model_name`` "DGCNN", "PTran" and
-"Pointnet", in eval and train mode: the per-domain forward, the stacked
-both-domains forward (``domain="stacked"``) and the gradient-reversal layer.
-The other backbones come with later slices (ROADMAP.md, "Modules to port").
-``set_compute_dtype`` sets the bf16 policy (``models/precision.py``) on
-each of the three.
+``sug_tpu/models/net_mda.py`` for ``model_name`` "DGCNN", "PTran",
+"Pointnet" and "Pointnet2", in eval and train mode: the per-domain forward,
+the stacked both-domains forward (``domain="stacked"``) and the
+gradient-reversal layer. KPConv comes with a later slice (ROADMAP.md,
+"Modules to port"). ``set_compute_dtype`` sets the bf16 policy
+(``models/precision.py``) on DGCNN, PTran and Pointnet; Pointnet2 refuses
+it.
 """
 
 from __future__ import annotations
@@ -19,13 +20,14 @@ from sug_tpu_torch.models.heads import ClassifierHead
 from sug_tpu_torch.models.bn import stacked_bn
 from sug_tpu_torch.models.layers import CALayer, flax_init_, grad_reverse
 from sug_tpu_torch.models.pointnet import PointNetGenerator
+from sug_tpu_torch.models.pointnet2 import PointNet2Generator
 from sug_tpu_torch.models.precision import set_compute_dtype
 from sug_tpu_torch.models.ptran import PointTransformerGenerator
 
 DOMAINS = (None, "source", "target", "both")
-BACKBONES = ("DGCNN", "PTran", "Pointnet")
+BACKBONES = ("DGCNN", "PTran", "Pointnet", "Pointnet2")
 # the classifier-head variant of each backbone
-HEAD_VARIANTS = {"DGCNN": "dgcnn", "PTran": "ptran", "Pointnet": "relu"}
+HEAD_VARIANTS = {"DGCNN": "dgcnn", "PTran": "ptran", "Pointnet": "relu", "Pointnet2": "relu"}
 
 
 class NetMDA(nn.Module):
@@ -33,10 +35,10 @@ class NetMDA(nn.Module):
     attention ``attention_s``/``attention_t``.
 
     ``forward`` returns a dict: logits1, logits2 (B, num_class); sem1, sem2
-    (B, 256); global_feat (B, 1024 for DGCNN and Pointnet, 512 for PTran);
-    node_flat (B, 64*64), flattened node-major; node_offset (None for
-    PTran); and node_attn (domain 'source' or 'target') or node_attn and
-    node_attn_t (domain 'both').
+    (B, 256); global_feat (B, 1024 for DGCNN, Pointnet and Pointnet2, 512
+    for PTran); node_flat (B, 64*64), flattened node-major; node_offset
+    (None for PTran and Pointnet2); and node_attn (domain 'source' or
+    'target') or node_attn and node_attn_t (domain 'both').
 
     ``domain="stacked"`` takes ``concat(source, target)`` (2B clouds) and
     runs the generator once over it, its BNs in the 2-group sequential
@@ -51,8 +53,9 @@ class NetMDA(nn.Module):
     target half's, as the reference applies it to the target forward.
 
     ``num_points`` sizes PTran's ``point_mix`` (flax sizes it at the first
-    call); DGCNN and Pointnet take any cloud size. ``fps_start`` (B,) starts
-    the first FPS (index 0 when None); ``generator`` draws the heads' dropout
+    call); DGCNN and Pointnet take any cloud size, Pointnet2 any from 512
+    points (its first FPS takes 512). ``fps_start`` (B,) starts the first
+    FPS (index 0 when None); ``generator`` draws the heads' dropout
     masks in train mode. The constructor's ``generator`` (CPU) draws the
     initial Dense kernels.
     """
@@ -70,6 +73,8 @@ class NetMDA(nn.Module):
             self.g = DGCNNGenerator()
         elif model_name == "Pointnet":
             self.g = PointNetGenerator()
+        elif model_name == "Pointnet2":
+            self.g = PointNet2Generator()
         else:
             self.g = PointTransformerGenerator(num_points)
         self.c1 = ClassifierHead(num_class, HEAD_VARIANTS[model_name])

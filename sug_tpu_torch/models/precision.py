@@ -82,9 +82,16 @@ class Mixed(nn.Module):
 
 
 def set_compute_dtype(module: nn.Module, dtype: Optional[torch.dtype]) -> None:
-    """Every ``Mixed`` module of ``module`` computes in ``dtype`` (None: f32)."""
+    """Every ``Mixed`` module of ``module`` computes in ``dtype`` (None: f32).
+    bf16 raises ``NotImplementedError`` for a module whose policy is not
+    ported yet: one with a ``bf16_queued`` attribute, the ROADMAP.md item
+    that queues it."""
     if dtype not in (None, torch.bfloat16):
         raise ValueError(f"the compute dtype is None (f32) or torch.bfloat16, got {dtype}")
+    queued = [m for m in module.modules() if getattr(m, "bf16_queued", None)]
+    if dtype is not None and queued:
+        raise NotImplementedError(f"{type(queued[0]).__name__} under the bf16 policy is not "
+                                  f"ported yet; it is queued in ROADMAP.md ({queued[0].bf16_queued})")
     for m in module.modules():
         if isinstance(m, Mixed):
             m.compute_dtype = dtype

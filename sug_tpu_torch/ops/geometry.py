@@ -18,7 +18,7 @@ already one compiled program; on the card the same function is one kernel.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -137,6 +137,39 @@ def query_ball_point(
     group_idx = torch.where(group_idx == N, group_idx[..., :1], group_idx)
     # an empty ball leaves only sentinels: clamp into range
     return torch.clamp(group_idx, max=N - 1)
+
+
+def sample_and_group(
+    npoint: int,
+    radius: Optional[float],
+    nsample: int,
+    xyz: torch.Tensor,
+    feats: Optional[torch.Tensor],
+    start_idx: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """PointNet++ grouping: FPS of ``npoint`` centroids of ``xyz`` (B, N, 3)
+    from ``start_idx``, the ball query around each, the gather and the
+    centring. Returns new_xyz (B, npoint, 3) and the grouped features
+    (B, npoint, nsample, 3 [+ D]): ``[grouped_xyz − centroid, feats]`` in
+    that channel order, ``feats`` (B, N, D) or None."""
+    new_xyz = index_points(xyz, farthest_point_sample(xyz, npoint, start_idx))
+    group_idx = query_ball_point(radius, nsample, xyz, new_xyz)
+    grouped = index_points(xyz, group_idx) - new_xyz[:, :, None, :]
+    if feats is not None:
+        grouped = torch.cat([grouped, index_points(feats, group_idx)], dim=-1)
+    return new_xyz, grouped
+
+
+def sample_and_group_all(
+    xyz: torch.Tensor, feats: Optional[torch.Tensor]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The whole cloud as one group around the origin (the last SA layer):
+    new_xyz zeros (B, 1, 3), grouped (B, 1, N, 3 [+ D]), ``[xyz, feats]``."""
+    new_xyz = xyz.new_zeros((xyz.shape[0], 1, 3))
+    grouped = xyz[:, None]
+    if feats is not None:
+        grouped = torch.cat([grouped, feats[:, None]], dim=-1)
+    return new_xyz, grouped
 
 
 def three_nn_interpolate(

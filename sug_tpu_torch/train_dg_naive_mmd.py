@@ -3,7 +3,7 @@ node-MMD updates on the two sub-domains of one source dataset, the port's
 counterpart of ``train_dg_naive_mmd.py``.
 
     python -m sug_tpu_torch.train_dg_naive_mmd --source modelnet \\
-        --cfg tools/cfgs/cfgs_local/DG_baseline.yaml [--set Model (DGCNN|PTran|Pointnet)] \\
+        --cfg tools/cfgs/cfgs_local/DG_baseline.yaml [--set Model (DGCNN|PTran|Pointnet|Pointnet2)] \\
         [--batch_size 64] [--num_points 1024] [--device cuda] [--fix_random_seed]
 
 The ``Random`` splitter's ``TRAIN_BASE`` subset is the source, the other

@@ -2,15 +2,15 @@
 ``train_dg_single_gpu.py``.
 
     python -m sug_tpu_torch.train_dg_single_gpu --source modelnet \\
-        --cfg tools/cfgs/cfgs_local/DG_unified_loss.yaml [--set Model (DGCNN|PTran)] \\
+        --cfg tools/cfgs/cfgs_local/DG_unified_loss.yaml [--set Model (DGCNN|PTran|Pointnet2)] \\
         [--batch_size 64] [--num_points 1024] [--device cuda] [--resume ckpt.pt] \\
         [--fix_random_seed]
 
 ``--device cpu`` runs the kernels' plain versions on the CPU. The port
 trains the config's ``Model``: ``Pointnet`` (the shipped config's, at any
-``--num_points``, 4096 included), ``DGCNN``, or ``PTran`` (built for
-``--num_points`` points, at most about 3600 on the card); another model
-raises.
+``--num_points``, 4096 included), ``DGCNN``, ``PTran`` (built for
+``--num_points`` points, at most about 3600 on the card) or ``Pointnet2``
+(at least 512 points, f32 only); another model raises.
 """
 
 from __future__ import annotations

@@ -2,14 +2,15 @@
 ``train_source.py``.
 
     python -m sug_tpu_torch.train_source --source modelnet \\
-        --cfg tools/cfgs/cfgs_local/direct_inference.yaml [--set Model (DGCNN|PTran)] \\
+        --cfg tools/cfgs/cfgs_local/direct_inference.yaml [--set Model (DGCNN|PTran|Pointnet2)] \\
         [--batch_size 64] [--num_points 1024] [--device cuda] \\
         [--resume ckpt.pt | --pretrained_model ckpt.pt] [--fix_random_seed]
 
 ``--device cpu`` runs the kernels' plain versions on the CPU. The port
 trains the standalone classifier of the config's ``Model``: ``Pointnet``
-(the shipped config's), ``DGCNN`` or ``PTran`` (at most about 3600 points
-on the card); another model raises.
+(the shipped config's), ``DGCNN``, ``PTran`` (at most about 3600 points
+on the card) or ``Pointnet2`` (at least 512 points, f32 only); another
+model raises.
 """
 
 from __future__ import annotations

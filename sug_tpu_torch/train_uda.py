@@ -3,7 +3,7 @@ unlabelled target dataset, GRL and node-MMD alternating updates; the port's
 counterpart of ``train_uda.py``, with its single-dash flags.
 
     python -m sug_tpu_torch.train_uda -source scannet -target modelnet -b 64 -e 200 \\
-        [-model_name (Pointnet|DGCNN|PTran)] [-datadir ./dataset/] [-device cuda] \\
+        [-model_name (Pointnet|DGCNN|PTran|Pointnet2)] [-datadir ./dataset/] [-device cuda] \\
         [-num_points 1024]
 
 Seed 666; ``lr_g`` the cosine schedule of ``-lr`` and ``lr_c`` that of

@@ -243,7 +243,7 @@ def test_unported_config_raises(setup, monkeypatch):
         assert tdt.DGTrainer({**cfg, "PRECISION": "bf16"}, model_name=model_name,
                              device="cpu").compute_dtype == torch.bfloat16
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdt.DGTrainer(cfg, model_name="Pointnet2", device="cpu")
+        tdt.DGTrainer(cfg, model_name="KPConv", device="cpu")
     monkeypatch.setenv("SUG_STACKED_FORWARD", "1")
     methods = cfg["METHODS"]
     for name in ("CL", "HARD_MMD", "MAX_HARD_MMD"):

@@ -193,4 +193,4 @@ def test_infer_without_dg_is_not_ported(npz_ckpt):
 
 def test_other_backbones_are_not_ported():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NetMDA("Pointnet2")
+        NetMDA("KPConv")

@@ -102,6 +102,6 @@ def test_grl_lambda_per_epoch(data_root, tmp_path, monkeypatch):
 
 def test_other_models_raise(data_root):
     argv = _argv(data_root, 1)
-    argv[argv.index("DGCNN")] = "Pointnet2"
+    argv[argv.index("DGCNN")] = "KPConv"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_dg_single_gpu.main(argv)
