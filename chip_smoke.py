@@ -132,11 +132,24 @@ ends the run with a non-zero exit; the phases, in order:
    tie (``card_ball_groups``, ``ball_tie_verdict``); and a synthetic
    reference-repo ``.pth`` for each backbone of ``CONVERTED`` run through
    ``python -m sug_tpu_torch.convert_reference_checkpoint`` and served by
-   ``infer --dg``, logits against the CPU. Every DG path runs the FPS
+   ``infer --dg``, logits against the CPU; then KPConv (4o): the shipped
+   ``DG_unified_loss_onedataset_modelnet_KPConv.yaml`` as it stands through
+   ``train_dg_single_gpu`` at its batch of 16 and 1024 points, one epoch
+   and ``--resume`` for a second on the stacked forward (KPConv's default)
+   and a third with ``SUG_KPCONV_STACKED=0``, the occupancy guard's line in
+   each log; ``infer --model KPConv --dg``; one KPConv DG ``_loss`` at B=8
+   on the card against the CPU, stacked and sequential (losses with the
+   MMD losses on and off, gradients with them off); ``train_source --set
+   Model KPConv`` one epoch and ``--resume``, and ``infer`` without
+   ``--dg``; each comparison on each device's own pyramids unless the
+   limits fail, then the CPU on the card's (``card_pyramids``), each cloud
+   level or query row it would build otherwise held to a voxel-face or
+   radius tie (``pyramid_tie_verdict``). Every DG path runs the FPS
    kernel (DGCNN's and PointNet's SA-node once a forward, PTran's four
    TransitionDowns, PointNet++'s two set abstractions), PointNet++'s and
-   PTran's classifiers too, the DGCNN and PointNet classifiers none; no
-   path at 1024 points launches min-dists;
+   PTran's classifiers too, the DGCNN and PointNet classifiers none;
+   KPConv launches no kernel at all; no path at 1024 points launches
+   min-dists;
 5. times, with CUDA events after warm-up: each kernel shape beside its bound,
    its plain version and, for min-dists, ``torch.cdist`` and ``amin``; FPS
    at every shape above, through its launcher, the wrapper and the
@@ -169,10 +182,13 @@ ends the run with a non-zero exit; the phases, in order:
    and the vector-attention kernels in the bf16 mode at the five PTran
    levels, beside their bounds (the D×D products at the bf16 peak, q, key,
    val at 2 bytes) and bf16 plain versions, the backward split by kernel;
-   last, the source-only step at B=64 and the eval forward per batch of 64
-   of the four classifiers, and the alternating step at B=64+64 (naive
-   DGCNN, uda PointNet), each with its busy share, kernels a step and peak
-   memory, its launches counted as ``MAIN_PATHS`` says.
+   then KPConv's DG step (the shipped config's losses) at B=64+64 and at
+   its own 16+16, sequential, stacked, stacked, sequential on one trainer,
+   and its eval forward per batch of 64; last, the source-only step at
+   B=64 and the eval forward per batch of 64 of the five classifiers, and
+   the alternating step at B=64+64 (naive DGCNN, uda PointNet), each with
+   its busy share, kernels a step and peak memory, its launches counted as
+   ``MAIN_PATHS`` says.
 
 The line before the last is a JSON object with every kernel's numbers (the
 two EdgeConv kernels' ``values_bf16`` mode and the two vector-attention
@@ -476,6 +492,13 @@ MAIN_PATHS = {
     ("Pointnet2", N_POINTS): ((0, 0, 0, 0, 4, 0), (0, 0, 0, 0, 2, 0)),
     ("Pointnet2", N_POINTS, "stacked"): ((0, 0, 0, 0, 2, 0), (0, 0, 0, 0, 2, 0)),
     ("Pointnet2", N_POINTS, "source"): ((0, 0, 0, 0, 2, 0), (0, 0, 0, 0, 2, 0)),
+    # KPConv (DG, stacked and sequential, and the classifier): no kernel at
+    # all. Its grid pyramid samples no points (no FPS), its radius queries,
+    # gathers and contractions are PyTorch's, and its SDA chamfer at 1024
+    # points is the plain one
+    ("KPConv", N_POINTS): ((0, 0, 0, 0, 0, 0), (0, 0, 0, 0, 0, 0)),
+    ("KPConv", N_POINTS, "stacked"): ((0, 0, 0, 0, 0, 0), (0, 0, 0, 0, 0, 0)),
+    ("KPConv", N_POINTS, "source"): ((0, 0, 0, 0, 0, 0), (0, 0, 0, 0, 0, 0)),
 }
 # the new trainers' configs: the source-only one (PointNet, with --set Model
 # for the others) and the naive-MMD DG baseline (DGCNN)
@@ -497,6 +520,10 @@ AB_CELLS = (("DGCNN", N_POINTS), ("PTran", N_POINTS), ("Pointnet", N_LARGE), ("D
             ("Pointnet2", N_POINTS))
 # the backbones the reference-checkpoint converter's entry point takes
 CONVERTED = ("Pointnet", "DGCNN", "Pointnet2")
+# KPConv (4o): the shipped config, at its own batch (its note: "KPConv bs=16")
+KPCONV_YAML = os.path.join(HERE, "tools", "cfgs", "cfgs_local",
+                           "DG_unified_loss_onedataset_modelnet_KPConv.yaml")
+KPCONV_B = 16
 # The bf16 policy (PRECISION: bf16): the EdgeConv kernels' values_bf16 mode
 # (DGCNN and PointNet), instantiated in the same sources, as (label, kernel
 # name, source); the --set that turns it on; phase 5's cells that run the
@@ -1448,6 +1475,10 @@ def classifier_serving(infer, ckpt, model_name, rng, tmp, dev):
         fail(f"infer --model {model_name} without --dg: launches {got}, expected {want}")
     first = torch.from_numpy(
         PointCloudDataset("modelnet", raw[:16], np.zeros(16), num_points=N_POINTS).pts)
+    if model_name == "KPConv":  # each device on its own pyramids, else the card's
+        kpconv_logits(f"KPConv classifier N={N_POINTS}",
+                      lambda d: infer.load_model(model_name, ckpt, d, dg=False), first)
+        return got
     with torch.no_grad():
         card = infer.model_logits(infer.load_model(model_name, ckpt, dev, dg=False),
                                   first.to(dev)).cpu()
@@ -1829,6 +1860,229 @@ def converted_serving(infer, rng, dev):
     return total
 
 
+def to_cpu(tree):
+    """A pyramid (dict of lists of tensors and (idx, mask) pairs) on the CPU."""
+    if isinstance(tree, dict):
+        return {k: to_cpu(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_cpu(v) for v in tree)
+    return tree.cpu()
+
+
+def face_gap(points, valid, dl):
+    """The distance of the valid ``points`` (N, 3) of one cloud nearest to a
+    face of the voxel grid of side ``dl``, in float64."""
+    p = points[valid > 0].double()
+    return float((p - dl * torch.round(p / dl)).abs().min()) if len(p) else float("inf")
+
+
+def pyramid_tie_gaps(build, card, cfg, differ):
+    """Where the CPU, from the card's points, builds another KPConv pyramid
+    than the card's ``card``: per cloud and level, a voxel subsample whose
+    valid mask differs or whose points differ beyond 1e-4 (the CPU's own
+    pyramid from the same clouds; the cloud's gap is the distance of its
+    previous level's point nearest a face of this level's grid, and only
+    the first differing level of a cloud counts); per valid query row of
+    the neighbour and pool queries (the CPU's own query on the card's
+    points), a row whose set differs (its gap the |d² − r²| / r², in
+    float64, of the point nearest the radius among those in one set and
+    not the other). ``differ`` gathers [rows and clouds, those that differ,
+    the largest gap, 0]. ``build`` is ``build_pyramid``."""
+    from sug_tpu_torch.models import kpconv
+
+    own = build(card["points"][0], cfg)
+    dl, r0 = cfg["grid_dl"], cfg["grid_dl"] * cfg["conv_radius"]
+    done = torch.zeros(card["points"][0].shape[0], dtype=torch.bool)
+    for lvl in range(1, len(card["points"])):
+        same = (own["valid"][lvl] == card["valid"][lvl]).all(-1) & (
+            (own["points"][lvl] - card["points"][lvl]).abs().amax((-1, -2)) <= 1e-4)
+        for b in torch.nonzero(~same & ~done).flatten().tolist():
+            differ[1] += 1
+            differ[2] = max(differ[2], face_gap(card["points"][lvl - 1][b],
+                                                card["valid"][lvl - 1][b], dl * 2**lvl))
+        done |= ~same
+        differ[0] += len(same)
+    for lvl in range(len(card["points"])):
+        r = r0 * 2**lvl
+        for key, q_lvl in (("neighbors", lvl), ("pools", lvl + 1)):
+            if q_lvl == len(card["points"]):
+                continue
+            idx, mask = card[key][lvl]
+            s_pts, q_pts = card["points"][lvl], card["points"][q_lvl]
+            mine, mine_mask = kpconv.radius_neighbors_masked(r, idx.shape[-1], s_pts, q_pts)
+            q_valid = card["valid"][q_lvl] > 0
+            rows = ((mine_mask != mask).any(-1) | ((mine != idx) & (mask > 0)).any(-1)) & q_valid
+            differ[0] += int(q_valid.sum())
+            for b, q in torch.nonzero(rows).tolist():
+                sets = set(idx[b, q][mask[b, q] > 0].tolist()) ^ set(
+                    mine[b, q][mine_mask[b, q] > 0].tolist())
+                d2 = (s_pts[b, sorted(sets)].double() - q_pts[b, q].double()).square().sum(-1)
+                differ[1] += 1
+                differ[2] = max(differ[2], float(((d2 - r * r).abs() / (r * r)).min()))
+
+
+@contextlib.contextmanager
+def card_pyramids(device, calls, order, differ):
+    """``card_neighbours`` for KPConv's pyramids: on the card, record every
+    pyramid ``build_pyramid`` returns into ``calls``; on the CPU, return
+    them in the same order, after measuring where the CPU would build
+    another (``pyramid_tie_gaps``). ``order`` is unused: the KPConv cases
+    keep their batches in order."""
+    from sug_tpu_torch.models import kpconv
+
+    build, replay = kpconv.build_pyramid, iter(calls)
+
+    def recording(pc, cfg):
+        pyr = build(pc, cfg)
+        calls.append(to_cpu(pyr))
+        return pyr
+
+    def replaying(pc, cfg):
+        card = next(replay)
+        pyramid_tie_gaps(build, card, cfg, differ)
+        return card
+
+    kpconv.build_pyramid = recording if device == "cuda" else replaying
+    try:
+        yield
+    finally:
+        kpconv.build_pyramid = build
+
+
+def pyramid_tie_verdict(tag, differ):
+    """Fail unless every cloud level and query row on which the CPU would
+    build another KPConv pyramid than the card's is a tie: a point within
+    NEAR_TIE_REL of a voxel face, or |d² − r²| ≤ NEAR_TIE_REL · r², and at
+    most 1 − MIN_SET_AGREEMENT of them differ. Returns the agreement in
+    words."""
+    rows, chosen_otherwise, widest, _ = differ
+    if widest > NEAR_TIE_REL:
+        fail(f"{tag} card vs CPU: where the CPU would build another pyramid, the nearest tie is "
+             f"{widest:.3e} from its voxel face or radius (> {NEAR_TIE_REL})")
+    if chosen_otherwise > (1.0 - MIN_SET_AGREEMENT) * rows:
+        fail(f"{tag} card vs CPU: the CPU would build another pyramid on {chosen_otherwise} of "
+             f"{rows} cloud levels and query rows (more than {1.0 - MIN_SET_AGREEMENT:.1%})")
+    return (f"the CPU would build another pyramid on {chosen_otherwise} of {rows} cloud levels "
+            f"and query rows, each within {widest:.3e} of a voxel face or of r²")
+
+
+def held_kpconv(tag, case):
+    """``held_card_against_cpu`` for a KPConv case: each device on its own
+    pyramids unless the limits fail, then the CPU on the card's
+    (``card_pyramids``), each cloud level or row it would build otherwise
+    held to a tie (``pyramid_tie_verdict``)."""
+    return held_card_against_cpu(tag, case, replay=False, replayer=card_pyramids,
+                                 verdict=pyramid_tie_verdict, replayed="KPConv pyramids")
+
+
+def kpconv_logits(tag, load, clouds):
+    """The logits (``infer.model_logits``) of the model ``load(device)``
+    returns for ``clouds`` on the card and on the CPU, held by
+    ``held_kpconv``: their norm as a loss, the logits as a gradient leaf
+    (relative L2)."""
+    from sug_tpu_torch import infer
+
+    def case(dev):
+        with torch.no_grad():
+            logits = infer.model_logits(load(torch.device(dev)), clouds.to(dev)).double().cpu()
+        if not torch.isfinite(logits).all():
+            fail(f"{tag} on {dev}: non-finite logits")
+        return [({"logit norm": logits.norm().item()}, {"logits": logits})]
+
+    card = held_kpconv(tag, case)
+    print(f"  {tag}: argmax classes {sorted(set(card[0][1]['logits'].argmax(-1).tolist()))}",
+          flush=True)
+
+
+def kpconv_runs(train_main, rng):
+    """The shipped ``DG_unified_loss_onedataset_modelnet_KPConv.yaml`` as it
+    stands through ``train_dg_single_gpu`` at its batch of KPCONV_B and
+    1024 points on a synthetic PointDA tree: one epoch, ``--resume`` for a
+    second (both on the stacked forward, KPConv's default), and
+    ``--resume`` for a third with ``SUG_KPCONV_STACKED=0`` (the sequential
+    forward); the occupancy guard's line in each run's log, every launch
+    count zero (``MAIN_PATHS``). Returns the summed counts."""
+    from sug_tpu_torch.engine import dg_trainer
+
+    total = dict.fromkeys(COUNTERS, 0)
+    stacked_calls, forward_stacked = [], dg_trainer.DGTrainer._forward_stacked
+
+    def counting(self, *args):
+        stacked_calls.append(1)
+        return forward_stacked(self, *args)
+
+    dg_trainer.DGTrainer._forward_stacked = counting
+    try:
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_kpconv_") as tmp:
+            root = os.path.join(tmp, "data", "PointDA_data")
+            write_pointda_tree(root, rng)
+            for epochs, kp_stacked in ((1, None), (2, None), (3, "0")):
+                extra = ("--resume", latest_checkpoint(root, epochs - 1)) if epochs > 1 else ()
+                argv = ["--source", "modelnet", "--cfg", KPCONV_YAML, "--batch_size",
+                        str(KPCONV_B), "--num_points", str(N_POINTS), "--device", "cuda",
+                        "--ckpt_save_interval", "1", "--fix_random_seed", *extra, "--set",
+                        "DATA_ROOT", root, "OPTIMIZATION.NUM_EPOCHES", str(epochs)]
+                stacked_calls.clear()
+                with env("SUG_KPCONV_STACKED", kp_stacked), env("SUG_STACKED_FORWARD", None):
+                    result, got, _ = entry_run(
+                        f"train_dg_single_gpu (shipped KPConv config, batch {KPCONV_B}"
+                        + (", SUG_KPCONV_STACKED=0" if kp_stacked else ", stacked") + ")",
+                        train_main, argv, "KPConv", N_POINTS,
+                        None if kp_stacked else "stacked",
+                        ("loss_cls", "loss_geo", "loss_sem"), backward_calls=2)
+                steps = sum(h["steps"] for h in result["history"])
+                if [h["epoch"] for h in result["history"]] != [epochs - 1]:
+                    fail(f"KPConv run ran epochs {[h['epoch'] for h in result['history']]}")
+                if len(stacked_calls) != (0 if kp_stacked else steps):
+                    fail(f"KPConv epoch {epochs - 1}: {len(stacked_calls)} stacked forwards in "
+                         f"{steps} steps")
+                total = {k: total[k] + got[k] for k in COUNTERS}
+            logs = glob.glob(os.path.join(root, "output", "**", "log_train_dg*.txt"),
+                             recursive=True)
+            lines = [line.strip() for p in logs for line in open(p)
+                     if "KPConv pyramid occupancy" in line]
+            if len(lines) != 3:
+                fail(f"the occupancy guard logged {len(lines)} lines in 3 KPConv runs: {lines}")
+            print(f"  occupancy guard: {lines[0][lines[0].index('KPConv'):]}", flush=True)
+    finally:
+        dg_trainer.DGTrainer._forward_stacked = forward_stacked
+    return total
+
+
+def kpconv_card_against_cpu(cfg):
+    """At B=``CARD_B`` with the same weights and batch, on the card and on
+    the CPU plain path (``held_kpconv``): one KPConv DG ``_loss(train=True)``
+    with the shipped config's losses (its ClassWeighting criterion from a
+    synthetic source split), on the stacked forward, its losses with the MMD
+    losses on and off and its gradients with them off; and the same on the
+    sequential forward."""
+    from sug_tpu_torch.data.datasets import PointCloudDataset, make_synthetic_pointda
+    from sug_tpu_torch.engine.dg_trainer import DGTrainer, make_criterion
+
+    pts, labels = make_synthetic_pointda(num_per_class=2, num_points=N_POINTS, seed=17)
+    ds = PointCloudDataset("modelnet", pts, labels, num_points=N_POINTS, model="KPConv")
+
+    def batch(dev):
+        return [torch.from_numpy(a).to(dev) for a in
+                (ds.pts[:CARD_B], ds.labels[:CARD_B].astype(np.int64),
+                 ds.pts[-CARD_B:], ds.labels[-CARD_B:].astype(np.int64))]
+
+    def dg(dev):
+        tr = DGTrainer(cfg, model_name="KPConv", augment=False, device=dev, seed=0)
+        tr.criterion = make_criterion(cfg["OPTIMIZATION"], ds, 10, tr.device)
+        out = []
+        for mmd_on in (True, False):
+            total, metrics = tr._loss(*batch(dev), mmd_on=mmd_on, train=True)
+            out.append(({f"{k} (mmd {mmd_on})": v.item() for k, v in metrics.items()},
+                        None if mmd_on else grads_by_name(tr, tr.grads(total))))
+        return out
+
+    for kp_stacked in ("1", "0"):
+        with env("SUG_KPCONV_STACKED", kp_stacked), env("SUG_STACKED_FORWARD", None):
+            held_kpconv(f"KPConv DG _loss(train=True) at B={CARD_B}, N={N_POINTS} "
+                        f"({'stacked' if kp_stacked == '1' else 'sequential'})", dg)
+
+
 def time_cell(what, model_name, variant, fn, iters, clouds, smi):
     """One timed cell of a new path's step: ms, clouds/s, peak memory, busy
     share and kernels a step, its launches checked against ``MAIN_PATHS``
@@ -1845,6 +2099,9 @@ def time_cell(what, model_name, variant, fn, iters, clouds, smi):
           + ("not measured" if busy is None else f"{busy[0]:.1%}, {busy[1]:.0f} kernels a step")
           + f"; peak device memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above "
           f"what the script held before); card {smi}", flush=True)
+    return {"ms": ms, "clouds_per_s": clouds / ms * 1e3, "peak_mib": peak / 2**20,
+            "busy": None if busy is None else busy[0],
+            "kernels": None if busy is None else busy[1]}
 
 
 def time_new_paths(step_args, baseline_cfg, smi):
@@ -1881,6 +2138,58 @@ def time_new_paths(step_args, baseline_cfg, smi):
                   lambda: trainer.train_step(data_s, label_s, data_t, label_t, 1e-4, 1e-4, 1e-4,
                                              0.5), 5, 2 * B, smi)
         del trainer
+
+
+def time_kpconv(cfg, model, batch, step_args, smi):
+    """Phase 5's KPConv cells (the shipped config, ``cfg``): the DG step
+    with its losses at B+B and at its own KPCONV_B+KPCONV_B clouds,
+    sequential, stacked, stacked, sequential on one trainer each, and a
+    summary of the runs; the eval forward of 4o's serving ``model`` per
+    batch of B (``batch``). Each with its busy share, kernels a step and
+    peak memory, its launches (none) checked against ``MAIN_PATHS``."""
+    from sug_tpu_torch.data.datasets import PointCloudDataset, make_synthetic_pointda
+    from sug_tpu_torch.engine.dg_trainer import DGTrainer, make_criterion
+    from sug_tpu_torch.models.net_mda import ensemble_logits
+
+    pts, labels = make_synthetic_pointda(num_per_class=2, num_points=N_POINTS, seed=17)
+    ds = PointCloudDataset("modelnet", pts, labels, num_points=N_POINTS, model="KPConv")
+    runs = {}
+    for b in (B, KPCONV_B):
+        args = [a[:b] for a in step_args]
+        trainer = DGTrainer(cfg, model_name="KPConv", device="cuda", seed=0)
+        trainer.criterion = make_criterion(cfg["OPTIMIZATION"], ds, 10, trainer.device)
+        for stacked in (False, True, True, False):
+            label = "stacked" if stacked else "sequential"
+            with env("SUG_KPCONV_STACKED", "1" if stacked else "0"), \
+                    env("SUG_STACKED_FORWARD", None):
+                runs.setdefault(f"B={b}+{b} {label}", []).append(time_cell(
+                    f"KPConv DG train step ({label}, B={b}+{b}, N={N_POINTS}, the shipped "
+                    "config's losses, augmentation)", "KPConv", "stacked" if stacked else None,
+                    lambda: trainer.train_step(*args, 1e-4, 1e-4, 1e-4), 5, 2 * b, smi))
+        del trainer
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with torch.no_grad():
+        ms = timed_ms(lambda: ensemble_logits(model, batch), iters=10)
+        peak = torch.cuda.max_memory_allocated()
+        busy = profile_device(lambda: ensemble_logits(model, batch), "KPConv inference forward",
+                              ms)
+    check_launches("KPConv inference forward", "KPConv", N_POINTS, 0, 15)
+    print(f"forward (NetMDA KPConv eval, ensemble logits), B={B}, N={N_POINTS}: {ms:.3f} ms per "
+          f"batch, {B / ms * 1e3:.1f} clouds/s, busy "
+          + ("not measured" if busy is None else f"{busy[0]:.1%}, {busy[1]:.0f} kernels")
+          + f"; peak device memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above "
+          f"what the script held before); card {smi}", flush=True)
+    print(f"KPConv DG train step, sequential against stacked (card: {smi}; runs in turns):",
+          flush=True)
+    for cell, rs in runs.items():
+        print(f"  A/B KPConv {cell}: " + "; ".join(
+            f"{r['ms']:.4f} ms, {r['clouds_per_s']:.1f} clouds/s, busy "
+            + ("not measured" if r["busy"] is None else
+               f"{r['busy']:.1%}, {r['kernels']:.0f} kernels a step")
+            + f", peak {r['peak_mib']:.1f} MiB" for r in rs), flush=True)
 
 
 def near_tie_gaps(q, kv, a, b):
@@ -2382,6 +2691,10 @@ def serving_run(infer, model_name, seed, rng, dev, n_clouds, num_points=N_POINTS
                                               num_points)
         first = torch.from_numpy(
             PointCloudDataset("modelnet", raw[:16], np.zeros(16), num_points=num_points).pts)
+        if model_name == "KPConv":  # each device on its own pyramids, else the card's
+            kpconv_logits(f"KPConv N={num_points} (infer --dg)", lambda d: infer.load_model(
+                model_name, ckpt, d, num_points), first)
+            return launches, model, batch
         cpu_dev = torch.device("cpu")
         with torch.no_grad():
             card = ensemble_logits(infer.load_model(model_name, ckpt, dev, num_points, dtype),
@@ -3023,7 +3336,8 @@ def main() -> None:
     # card against the CPU
     t_new = time.perf_counter()
     rng15 = np.random.default_rng(15)  # 4m's own, so the later draws stay as they were
-    got, source_by_kernel = source_runs(train_source, infer, rng15, dev, CLASSIFIERS)
+    got, source_by_kernel = source_runs(train_source, infer, rng15, dev,
+                                        [m for m in CLASSIFIERS if m != "KPConv"])  # 4o's
     va_bwd_by_kernel = {k: va_bwd_by_kernel[k] + source_by_kernel[k] for k in VA_BWD_KERNELS}
     alternating = alternating_runs(train_dg_naive_mmd, train_uda, rng15)
     for counted in (got, alternating):
@@ -3071,6 +3385,25 @@ def main() -> None:
     fwd_launches += got["edgeconv_fwd"]
     fps_launches += got["fps"]
     print(f"PointNet++ and the converted checkpoints, phase 4: {time.perf_counter() - t_pn2:.1f} s",
+          flush=True)
+
+    # 4o. KPConv: the shipped config through the DG front door at its batch of
+    # 16 (one epoch, --resume for a second, stacked; a third sequential);
+    # infer --dg; one DG loss at B=8 on the card against the CPU, stacked and
+    # sequential; train_source --set Model KPConv (one epoch, --resume) and
+    # infer without --dg; every KPConv launch count zero
+    t_kp = time.perf_counter()
+    rng17 = np.random.default_rng(17)  # 4o's own, so the later draws stay as they were
+    kp_launches = kpconv_runs(train_dg_single_gpu.main, rng17)
+    launches, kp_model, kp_batch = serving_run(infer, "KPConv", 10, rng17, dev, 2 * B)
+    kp_launches = {k: kp_launches[k] + launches[k] for k in COUNTERS}
+    _, kp_cfg = parser_config(["--cfg", KPCONV_YAML])
+    kpconv_card_against_cpu(kp_cfg)
+    got, _ = source_runs(train_source, infer, rng17, dev, ("KPConv",))
+    kp_launches = {k: kp_launches[k] + got[k] for k in COUNTERS}
+    if any(kp_launches.values()):
+        fail(f"the KPConv paths launched {kp_launches}; they launch no kernel")
+    print(f"KPConv, phase 4: {time.perf_counter() - t_kp:.1f} s; launches {kp_launches}",
           flush=True)
 
     # 5. times
@@ -3408,6 +3741,10 @@ def main() -> None:
                 cell.setdefault(label, []).append(r)
         del trainer
     print(f"the steps' A/B cells: {time.perf_counter() - t_steps:.1f} s", flush=True)
+    t_kp = time.perf_counter()
+    time_kpconv(kp_cfg, kp_model, kp_batch, step_args[N_POINTS], smi)
+    del kp_model, kp_batch
+    print(f"KPConv, phase 5: {time.perf_counter() - t_kp:.1f} s", flush=True)
     t_new = time.perf_counter()
     time_new_paths(step_args[N_POINTS], baseline_cfg, smi)
     print(f"source-only and alternating paths, phase 5: {time.perf_counter() - t_new:.1f} s",

@@ -51,7 +51,9 @@ class AlternatingTrainer:
     """Owns the ``NetMDA`` model on ``device``, the three-group optimizer and
     the trainer's generator, which draws the augmentation, the FPS starts
     and the dropout masks. ``seed`` seeds the initial weights (drawn on the
-    CPU) and the generator; ``num_points`` sizes a PTran model. An unknown
+    CPU) and the generator; ``num_points`` sizes a PTran model. KPConv's
+    ``NetMDA`` is built without MODEL_CFG, as the JAX trainer builds it
+    (ROADMAP.md §3, R4). An unknown
     model raises ``NotImplementedError``, an unknown mode or naive-mode
     ``CLASS_MMD`` name ``ValueError``."""
 

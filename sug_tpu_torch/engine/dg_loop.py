@@ -1,7 +1,8 @@
 """The DG training loop: counterpart of ``sug_tpu/engine/dg_loop.py`` on one
 device (no mesh, native loader, profiler trace or multi-process).
 
-Per epoch: the cosine and dis learning rates, the GRL's λ
+KPConv's pyramid occupancy on the first source clouds is logged at start-up
+(``check_neighbor_occupancy``). Per epoch: the cosine and dis learning rates, the GRL's λ
 ``sin((epoch + 1) / max_epoch · π/2)``, ``PURE_CLS_EPOCH`` gating of the MMD
 losses, paired source/target split batches (shuffled by epoch), eval
 on the source test split and the two unseen datasets with best-accuracy
@@ -26,6 +27,7 @@ from sug_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint, sa
 from sug_tpu_torch.engine.dg_trainer import DGTrainer, check_supported, make_criterion
 from sug_tpu_torch.engine.evaluation import Evaluator, eval_epoch, eval_datasets
 from sug_tpu_torch.engine.optim import cosine_lr, dis_lr_schedule
+from sug_tpu_torch.models.kpconv import check_neighbor_occupancy
 from sug_tpu_torch.utils.config import log_config_to_file, resolve_seed
 from sug_tpu_torch.utils.logging import open_run
 
@@ -78,6 +80,9 @@ def run_dg_training(args, cfg) -> Dict:
 
     names, eval_sets = eval_datasets(args.source, num_points, model_name, data_root, fixed_rot)
     logger.info(f"batch_size: {batch_size}")
+    if model_name == "KPConv" and source_train_dataset is not None:
+        check_neighbor_occupancy(source_train_dataset.pts, cfg.get("MODEL_CFG", None),
+                                 logger=logger, device=device)
 
     opt_cfg = cfg["OPTIMIZATION"]
     num_class = cfg["DATASET"]["NUM_CLASS"]

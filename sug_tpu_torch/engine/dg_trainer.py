@@ -7,7 +7,11 @@ The two forwards are one stacked forward over ``concat(source, target)``
 when ``SUG_STACKED_FORWARD=1`` (``NetMDA(domain="stacked")``: 2-group BN in
 the generator, numerically the sequential forwards' up to rounding, the
 head dropout drawn once over 2B rows); ``SUG_STACKED_FORWARD=0`` or unset
-keeps the sequential forwards for the three ported backbones. BN groups
+keeps the sequential forwards for DGCNN, PTran, Pointnet and Pointnet2.
+KPConv (whose generator mixes no rows and whose heads have no dropout)
+takes the stacked forward unless ``SUG_KPCONV_STACKED=0``, which
+``SUG_STACKED_FORWARD=1`` overrides and ``SUG_STACKED_FORWARD=0`` does not,
+as in the JAX package (``stacked_forward``). BN groups
 (``MODEL_CFG.BN_SEMANTICS: per_replica`` or ``SUG_BN_GROUPS``) are read once,
 at construction, and set on the model's BNs; with groups the forward stays
 sequential. ``METHODS.GRL`` reverses the target forward's gradient into the
@@ -32,11 +36,12 @@ params, their gradients and the optimizer's moments stay f32. The heads'
 logits are f32; their 256-d mid features are bf16, as in the JAX package,
 and so is what the sem alignments other than ``SOFT_MMD`` compute from them.
 
-``model_name`` is "DGCNN", "PTran", "Pointnet" or "Pointnet2"; PTran's
-vector attention runs its bf16 mode under the policy, and Pointnet2 refuses
-the policy (``NotImplementedError``). What the port does not have yet
-(KPConv, with its regularizer) raises ``NotImplementedError`` naming
-ROADMAP.md.
+``model_name`` is "DGCNN", "PTran", "Pointnet", "Pointnet2" or "KPConv"
+(its rigid network on the grid pyramid, ``MODEL_CFG`` its options); PTran's
+vector attention runs its bf16 mode under the policy, and Pointnet2 and
+KPConv refuse the policy (``NotImplementedError``). What the port does not
+have yet (deformable KPConv with its regularizer, its FPS pyramid) raises
+``NotImplementedError`` naming ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -52,12 +57,13 @@ from sug_tpu_torch.engine.optim import ThreeGroupOptimizer
 from sug_tpu_torch.losses.classification import cross_entropy, discrepancy, focal_loss
 from sug_tpu_torch.losses.mmd import PORTED_MMD, contrastive_loss_weighted, mmd_cal
 from sug_tpu_torch.models.bn import configure_from_cfg, set_bn_groups
+from sug_tpu_torch.models.kpconv import kpconv_config
 from sug_tpu_torch.models.net_mda import BACKBONES, NetMDA, ensemble_logits
 from sug_tpu_torch.models.precision import compute_dtype
 from sug_tpu_torch.ops.augment import augment_batch
 
 # backbones whose default is the stacked forward (the JAX package's
-# _STACKED_DEFAULT_ON: none of the three ported ones)
+# _STACKED_DEFAULT_ON: none; KPConv has a switch of its own)
 _STACKED_DEFAULT_ON: tuple = ()
 
 
@@ -96,6 +102,8 @@ def check_supported(cfg, model_name: str) -> None:
                           "the other backbones)")
     compute_dtype(cfg)  # an unknown PRECISION name raises ValueError
     configure_from_cfg(cfg)
+    if model_name == "KPConv":  # deformable blocks and the FPS pyramid raise
+        kpconv_config(cfg.get("MODEL_CFG", None))
     for key in ("GEO_MMD", "SEM_MMD"):
         if key in methods and methods[key][0]["NAME"] not in PORTED_MMD:
             raise ValueError(f"Not supported MMD method {methods[key][0]['NAME']} "
@@ -103,8 +111,12 @@ def check_supported(cfg, model_name: str) -> None:
 
 
 def stacked_forward(model_name: str) -> bool:
-    """``SUG_STACKED_FORWARD`` 1 or 0, else the backbone's default."""
+    """KPConv: on unless ``SUG_KPCONV_STACKED=0``, and then still on with
+    ``SUG_STACKED_FORWARD=1``. The others: ``SUG_STACKED_FORWARD`` 1 or 0,
+    else the backbone's default."""
     env = os.environ.get("SUG_STACKED_FORWARD")
+    if model_name == "KPConv":
+        return os.environ.get("SUG_KPCONV_STACKED", "1") != "0" or env == "1"
     if env in ("0", "1"):
         return env == "1"
     return model_name in _STACKED_DEFAULT_ON
@@ -115,8 +127,9 @@ class DGTrainer:
     trainer's generator, which draws the augmentation, the FPS starts and
     the dropout masks. ``seed`` seeds the initial weights (drawn on the CPU,
     so the same on every device) and the generator. ``num_points`` is the
-    cloud size a PTran model is built for (its ``point_mix``); DGCNN and
-    Pointnet take any, Pointnet2 any from 512. ``bn_groups`` is the BN group count the config asked
+    cloud size a PTran model is built for (its ``point_mix``); DGCNN,
+    Pointnet and KPConv take any, Pointnet2 any from 512. ``MODEL_CFG``
+    configures KPConv. ``bn_groups`` is the BN group count the config asked
     for, set on every BN of the model, and ``compute_dtype`` the precision
     policy's (None: f32; ``torch.bfloat16``), set on its layers."""
 
@@ -129,7 +142,7 @@ class DGTrainer:
         self.criterion = criterion or cross_entropy
         self.augment = augment
         model = NetMDA(model_name, num_class, generator=torch.Generator().manual_seed(seed),
-                       num_points=num_points)
+                       num_points=num_points, model_cfg=cfg.get("MODEL_CFG", None))
         self.model = model.to(self.device)
         self.model_name = model_name
         self.bn_groups = configure_from_cfg(cfg)

@@ -2,8 +2,10 @@
 ``sug_tpu/engine/source_loop.py`` on one device (no mesh, native loader or
 multi-process).
 
-The whole source train split, shuffled by epoch and augmented by the
-trainer; the cosine learning rate per epoch; eval on the source test split
+KPConv's pyramid occupancy on the first train clouds is logged at
+start-up (``check_neighbor_occupancy``, from MODEL_CFG, which the
+classifier itself does not read: ROADMAP.md §3, R4). The whole source
+train split, shuffled by epoch and augmented by the trainer; the cosine learning rate per epoch; eval on the source test split
 and the two unseen datasets with best-accuracy tracking and the per-class
 accuracy, its loss the trainer's criterion; a checkpoint every
 ``--ckpt_save_interval`` epochs. ``--resume`` restores the model and the
@@ -26,6 +28,7 @@ from sug_tpu_torch.engine.checkpoint import load_checkpoint, save_train_checkpoi
 from sug_tpu_torch.engine.evaluation import Evaluator, eval_epoch, eval_datasets
 from sug_tpu_torch.engine.optim import cosine_lr
 from sug_tpu_torch.engine.source_trainer import SourceTrainer
+from sug_tpu_torch.models.kpconv import check_neighbor_occupancy
 from sug_tpu_torch.utils.config import log_config_to_file, resolve_seed
 from sug_tpu_torch.utils.logging import open_run
 
@@ -54,6 +57,9 @@ def run_source_training(args, cfg) -> Dict:
                 + ", ".join(f"{k}: {len(v)}" for k, v in eval_sets.items()))
 
     opt_cfg = cfg["OPTIMIZATION"]
+    if model_name == "KPConv":
+        check_neighbor_occupancy(train_dataset.pts, cfg.get("MODEL_CFG", None), logger=logger,
+                                 device=device)
     trainer = SourceTrainer(model_name, num_class, float(opt_cfg["WEIGHT_DECAY"]), augment=True,
                             device=device, seed=seed, cfg=cfg)
     start_epoch = 0

@@ -7,7 +7,7 @@ head; reports accuracy on a dataset split or predicts an ``.npy`` of
 clouds, and optionally saves the predictions.
 
     python -m sug_tpu_torch.infer --ckpt model.pt \\
-        --model (DGCNN | PTran | Pointnet | Pointnet2) [--dg] \\
+        --model (DGCNN | PTran | Pointnet | Pointnet2 | KPConv) [--dg] \\
         (--dataset scannet --split test | --pts clouds.npy) \\
         [--batch_size 64] [--num_points 1024] [--device cuda] [--save preds.npy]
 
@@ -16,7 +16,9 @@ or from ``convert_reference_checkpoint`` for a ``.pth`` of the reference
 PyTorch repo) or an ``.npz`` of the JAX package's variables (see the
 README). A PTran DG model is built for
 ``--num_points`` points (its ``point_mix`` layer), so its checkpoint must
-come from a model of that size; the PTran classifier takes any.
+come from a model of that size; the PTran classifier takes any. KPConv's
+models are built with the defaults (no MODEL_CFG), as the JAX package's
+``infer.py`` builds them.
 ``SUG_PRECISION=bf16`` serves each model under the bf16 policy
 (``models/precision.py``).
 """
@@ -43,7 +45,7 @@ from sug_tpu_torch.models.precision import compute_dtype, set_compute_dtype
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ckpt", required=True, help="port checkpoint (.pt) or JAX variables (.npz)")
-    ap.add_argument("--model", default="DGCNN", help="DGCNN, PTran, Pointnet or Pointnet2")
+    ap.add_argument("--model", default="DGCNN", help="DGCNN, PTran, Pointnet, Pointnet2 or KPConv")
     ap.add_argument("--dg", action="store_true",
                     help="DG twin-head checkpoint (ensembled); without it a standalone classifier")
     ap.add_argument("--dataset", default=None, help="scannet/shapenet/modelnet")

@@ -9,7 +9,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-CLASSIFIERS = ("DGCNN", "PTran", "Pointnet", "Pointnet2")
+CLASSIFIERS = ("DGCNN", "PTran", "Pointnet", "Pointnet2", "KPConv")
 
 
 def make_classifier(model_name: str, num_class: int = 10,
@@ -17,8 +17,9 @@ def make_classifier(model_name: str, num_class: int = 10,
     """The standalone classifier of ``model_name``, as the source-only
     trainer and ``infer`` without ``--dg`` build it; ``generator`` (CPU)
     draws its initial Dense kernels. Its ``forward(pc, generator=None)``
-    returns (logits, mid_feature). KPConv raises ``NotImplementedError``;
-    an unknown name raises it too, as in the JAX package."""
+    returns (logits, mid_feature). KPConv's is built with the defaults and
+    no MODEL_CFG, as the JAX package builds it (ROADMAP.md §3, R4). An
+    unknown name raises ``NotImplementedError``, as in the JAX package."""
     if model_name == "Pointnet":
         from sug_tpu_torch.models.pointnet import PointNetClassifier
 
@@ -36,6 +37,7 @@ def make_classifier(model_name: str, num_class: int = 10,
 
         return PointNet2Classifier(num_class, generator=generator)
     if model_name == "KPConv":
-        raise NotImplementedError("the KPConv classifier is not ported yet; it is queued in "
-                                  "ROADMAP.md (item 17)")
+        from sug_tpu_torch.models.kpconv import KPConvClassifier
+
+        return KPConvClassifier(num_class, generator=generator)
     raise NotImplementedError(f"Unsupported model name {model_name}")

@@ -1,6 +1,5 @@
-"""Classifier head: counterpart of ``ClassifierHead`` in
-``sug_tpu/models/heads.py``, in its three variants. The KPConv head comes with
-its backbone's slice (ROADMAP.md)."""
+"""Classifier heads: counterparts of ``ClassifierHead`` (in its three
+variants) and ``KPConvHead`` in ``sug_tpu/models/heads.py``."""
 
 from __future__ import annotations
 
@@ -66,3 +65,22 @@ class ClassifierHead(nn.Module):
         mid_feature = self.mlp2(x)
         logits = self.mlp3(self.dropout(mid_feature, generator))
         return logits, mid_feature
+
+
+class KPConvHead(nn.Module):
+    """KPConv's head in the DG model: ``mlp1`` 256 (the mid feature, before
+    its relu) -> ``mlp2`` 64, relu -> ``mlp3`` to ``num_class``, all biased,
+    no dropout. ``forward(x, generator=None)`` returns (logits,
+    mid_feature); ``in_features`` is the generator's width (1024)."""
+
+    def __init__(self, num_class: int = 10, in_features: int = 1024):
+        super().__init__()
+        self.mlp1 = Dense(in_features, 256)
+        self.mlp2 = Dense(256, 64)
+        self.mlp3 = Dense(64, num_class)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        mid_feature = self.mlp1(x)
+        x = torch.relu(self.mlp2(torch.relu(mid_feature)))
+        return self.mlp3(x), mid_feature

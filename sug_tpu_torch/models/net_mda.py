@@ -1,11 +1,11 @@
 """NetMDA, the twin-head DG model: counterpart of
 ``sug_tpu/models/net_mda.py`` for ``model_name`` "DGCNN", "PTran",
-"Pointnet" and "Pointnet2", in eval and train mode: the per-domain forward,
-the stacked both-domains forward (``domain="stacked"``) and the
-gradient-reversal layer. KPConv comes with a later slice (ROADMAP.md,
-"Modules to port"). ``set_compute_dtype`` sets the bf16 policy
-(``models/precision.py``) on DGCNN, PTran and Pointnet; Pointnet2 refuses
-it.
+"Pointnet", "Pointnet2" and "KPConv" (its rigid network on the grid
+pyramid, with the two ``KPConvHead``s), in eval and train mode: the
+per-domain forward, the stacked both-domains forward (``domain="stacked"``)
+and the gradient-reversal layer. ``set_compute_dtype`` sets the bf16 policy
+(``models/precision.py``) on DGCNN, PTran and Pointnet; Pointnet2 and
+KPConv refuse it.
 """
 
 from __future__ import annotations
@@ -16,7 +16,8 @@ import torch
 from torch import nn
 
 from sug_tpu_torch.models.dgcnn import DGCNNGenerator
-from sug_tpu_torch.models.heads import ClassifierHead
+from sug_tpu_torch.models.kpconv import KPConvGenerator, init_kpconv_weights_
+from sug_tpu_torch.models.heads import ClassifierHead, KPConvHead
 from sug_tpu_torch.models.bn import stacked_bn
 from sug_tpu_torch.models.layers import CALayer, flax_init_, grad_reverse
 from sug_tpu_torch.models.pointnet import PointNetGenerator
@@ -25,8 +26,8 @@ from sug_tpu_torch.models.precision import set_compute_dtype
 from sug_tpu_torch.models.ptran import PointTransformerGenerator
 
 DOMAINS = (None, "source", "target", "both")
-BACKBONES = ("DGCNN", "PTran", "Pointnet", "Pointnet2")
-# the classifier-head variant of each backbone
+BACKBONES = ("DGCNN", "PTran", "Pointnet", "Pointnet2", "KPConv")
+# the classifier-head variant of each backbone but KPConv (KPConvHead)
 HEAD_VARIANTS = {"DGCNN": "dgcnn", "PTran": "ptran", "Pointnet": "relu", "Pointnet2": "relu"}
 
 
@@ -53,15 +54,18 @@ class NetMDA(nn.Module):
     target half's, as the reference applies it to the target forward.
 
     ``num_points`` sizes PTran's ``point_mix`` (flax sizes it at the first
-    call); DGCNN and Pointnet take any cloud size, Pointnet2 any from 512
-    points (its first FPS takes 512). ``fps_start`` (B,) starts the first
-    FPS (index 0 when None); ``generator`` draws the heads' dropout
-    masks in train mode. The constructor's ``generator`` (CPU) draws the
-    initial Dense kernels.
+    call); DGCNN, Pointnet and KPConv take any cloud size, Pointnet2 any
+    from 512 points (its first FPS takes 512). ``model_cfg`` is KPConv's
+    MODEL_CFG (other backbones ignore it, as in the JAX package).
+    ``fps_start`` (B,) starts the first FPS (index 0 when None; KPConv's
+    grid pyramid has none); ``generator`` draws the heads' dropout masks in
+    train mode. The constructor's ``generator`` (CPU) draws the initial
+    weights.
     """
 
     def __init__(self, model_name: str = "DGCNN", num_class: int = 10,
-                 generator: Optional[torch.Generator] = None, num_points: int = 1024):
+                 generator: Optional[torch.Generator] = None, num_points: int = 1024,
+                 model_cfg=None):
         super().__init__()
         if model_name not in BACKBONES:
             raise NotImplementedError(
@@ -69,19 +73,27 @@ class NetMDA(nn.Module):
                 "queued in ROADMAP.md under 'Modules to port'"
             )
         self.model_name = model_name
-        if model_name == "DGCNN":
-            self.g = DGCNNGenerator()
-        elif model_name == "Pointnet":
-            self.g = PointNetGenerator()
-        elif model_name == "Pointnet2":
-            self.g = PointNet2Generator()
+        node_width = 64  # node_fea is (B, 64, node_width)
+        if model_name == "KPConv":
+            self.g = KPConvGenerator(model_cfg)
+            node_width = self.g.encoder.tap_dim
+            self.c1 = KPConvHead(num_class, self.g.encoder.out_dim)
+            self.c2 = KPConvHead(num_class, self.g.encoder.out_dim)
         else:
-            self.g = PointTransformerGenerator(num_points)
-        self.c1 = ClassifierHead(num_class, HEAD_VARIANTS[model_name])
-        self.c2 = ClassifierHead(num_class, HEAD_VARIANTS[model_name])
-        self.attention_s = CALayer()
-        self.attention_t = CALayer()
+            if model_name == "DGCNN":
+                self.g = DGCNNGenerator()
+            elif model_name == "Pointnet":
+                self.g = PointNetGenerator()
+            elif model_name == "Pointnet2":
+                self.g = PointNet2Generator()
+            else:
+                self.g = PointTransformerGenerator(num_points)
+            self.c1 = ClassifierHead(num_class, HEAD_VARIANTS[model_name])
+            self.c2 = ClassifierHead(num_class, HEAD_VARIANTS[model_name])
+        self.attention_s = CALayer(64 * node_width)
+        self.attention_t = CALayer(64 * node_width)
         flax_init_(self, generator)
+        init_kpconv_weights_(self, generator)
 
     def set_compute_dtype(self, dtype: Optional[torch.dtype]) -> "NetMDA":
         """The compute dtype of every layer that follows the policy: None

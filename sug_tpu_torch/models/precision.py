@@ -23,6 +23,10 @@ give f32; anything else raises ``ValueError``. ``SUG_PRECISION=bf16`` (or
 ``bfloat16``) gives bf16 wherever the config does not, an explicit f32
 included, as ``compute_dtype()`` reads it in the JAX package.
 
+PointNet++ (ROADMAP.md item 16b) and KPConv (item 17c) are f32 only here:
+their modules carry ``bf16_queued``, and ``set_compute_dtype`` refuses bf16
+on them.
+
 The JAX package keeps the policy in process-global state that flax reads
 while tracing. Here the trainer and ``infer`` read it once
 (``compute_dtype``) and set it on the model's modules

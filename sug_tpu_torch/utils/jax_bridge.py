@@ -1,19 +1,22 @@
 """Carry the JAX package's weights into the port.
 
 ``state_dict_from_jax(variables)`` takes the ``{"params", "batch_stats"}``
-tree of ``sug_tpu``'s ``NetMDA`` (DGCNN, PTran, Pointnet or Pointnet2) or
-of one of its standalone classifiers (``make_classifier``: the same four),
-as nested dicts of numpy arrays, and returns the port's ``state_dict``. The
-port's modules are named after the JAX tree (PTran's ``g/backbone/transformer1/w_qs``,
+tree of ``sug_tpu``'s ``NetMDA`` (DGCNN, PTran, Pointnet, Pointnet2 or
+KPConv) or of one of its standalone classifiers (``make_classifier``: the
+same five), as nested dicts of numpy arrays, and returns the port's
+``state_dict``. The port's modules are named after the JAX tree (PTran's
+``g/backbone/transformer1/w_qs``,
 ``g/backbone/td0/mlp0/Dense_0``, ``g/point_mix``; PointNet's
 ``g/trans_net1/ConvBN_0``, ``g/conv1`` ... ``g/conv5``, ``g/bn1``,
 ``g/sa_node``; PointNet++'s ``g/sa1/mlp0``, the classifier's ``fc1``
-and ``BatchNorm_1``), so the bridge is a rename plus a transpose:
+and ``BatchNorm_1``; KPConv's ``g/encoder/block1/unary1/Dense_0`` and
+``g/encoder/block1/KPConv``), so the bridge is a rename plus a transpose:
 
 - module path: kept, with flax's auto-names renamed (``AUTONAMES``);
 - leaf: ``kernel`` -> ``weight`` (flax Dense ``(in, out)`` transposed to
   torch Linear ``(out, in)``), ``scale`` -> ``weight``, ``mean`` ->
-  ``running_mean``, ``var`` -> ``running_var``; other names are kept.
+  ``running_mean``, ``var`` -> ``running_var``; other names are kept, and
+  their arrays as they are (KPConv's ``weights``, (K, Cin, Cout) in both).
 
 ``load_jax_variables`` loads the result strictly: a JAX leaf the model does
 not have, or a model tensor no leaf fills, raises.

@@ -321,7 +321,7 @@ def test_train_uda_one_epoch(data_root, tmp_path):
 def test_unsupported_configs_raise():
     _, cfg = parser_config(["--cfg", YAML])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tat.AlternatingTrainer("KPConv", mode="naive", cfg=cfg, device="cpu")
+        tat.AlternatingTrainer("Pointnet3", mode="naive", cfg=cfg, device="cpu")
     bad = {**cfg, "METHODS": {**cfg["METHODS"], "CLASS_MMD": [{"NAME": "CL"}]}}
     with pytest.raises(ValueError, match="Not supported MMD method CL"):
         tat.AlternatingTrainer("DGCNN", mode="naive", cfg=bad, device="cpu")

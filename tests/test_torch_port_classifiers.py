@@ -9,7 +9,7 @@ BN scales negative) and head dropout off on both sides.
    of each; for DGCNN and PointNet also every parameter's gradient of the
    cross entropy.
 3. The bridge fills every tensor of each classifier, ``make_classifier``
-   raises on KPConv and on an unknown name, and ``set_compute_dtype(bf16)``
+   raises on an unknown name, KPConv under bf16, and ``set_compute_dtype(bf16)``
    reaches every ``Mixed`` layer of each classifier.
 
 The PointNet++ classifier, which needs 512 points (its first FPS takes
@@ -58,8 +58,10 @@ B, N = 4, 128
 TOL = dict(rtol=1e-4, atol=1e-4)
 REL_L2 = 2e-2
 LABELS = np.array([0, 3, 5, 9], np.int32)
-# the classifiers that run at N points (PointNet++: tests/test_torch_port_pointnet2.py)
-SMALL_CLASSIFIERS = tuple(c for c in CLASSIFIERS if c != "Pointnet2")
+# the classifiers held here, at N points (PointNet++: tests/test_torch_port_pointnet2.py;
+# KPConv, whose pyramid each package builds with its own f32 rounding and which refuses
+# bf16: tests/test_torch_port_kpconv_models.py)
+SMALL_CLASSIFIERS = tuple(c for c in CLASSIFIERS if c not in ("Pointnet2", "KPConv"))
 
 
 def _clouds(seed):
@@ -152,7 +154,13 @@ def test_bf16_policy_reaches_every_mixed_layer(pair):
 
 @pytest.mark.parametrize("name,item", [("Pointnet3", None), ("KPConv", "item 17")])
 def test_unported_classifiers_raise(name, item):
-    """KPConv names its ROADMAP item; an unknown name raises as in JAX."""
-    match = f"ROADMAP.md \\({item}\\)" if item else f"Unsupported model name {name}"
-    with pytest.raises(NotImplementedError, match=match):
-        make_classifier(name)
+    """An unknown name raises as in JAX. KPConv's classifier is built (its
+    rigid network); under the bf16 policy, not ported for it, it names its
+    ROADMAP item (17c)."""
+    if item is None:
+        with pytest.raises(NotImplementedError, match=f"Unsupported model name {name}"):
+            make_classifier(name)
+        return
+    model = make_classifier(name)
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md \\({item}c\\)"):
+        set_compute_dtype(model, torch.bfloat16)
