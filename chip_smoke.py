@@ -50,8 +50,10 @@ ends the run with a non-zero exit; the phases, in order:
    index from random starts at B=64 at the SA-node's (N, npoint) = (1024, 64)
    and (4096, 64), PTran's four levels (1024, 256), (256, 64), (64, 16),
    (16, 4), PointNet++'s two set abstractions (1024, 512) and (512, 128),
-   the ragged (1000, 250) and (4100, 64), (16384, 512), and at
-   small B on clusters of blocks (65536, 64) and (131072, 16), each on
+   the ragged (1000, 250) and (4100, 64), (16384, 512), at
+   small B on clusters of blocks (65536, 64) and (131072, 16), and KPConv's
+   FPS pyramid's (64, 32) and (32, 16) at B=64 and its four levels
+   (1024, 256), (256, 64), (64, 32), (32, 16) at B=128, each on
    random clouds and on a lattice with duplicate points, and on zero-padded
    clouds, two launches bit-identical; N = 131073 refused; FPS under
    ``torch.cuda.set_sync_debug_mode("error")`` (no read back to the host);
@@ -144,12 +146,20 @@ ends the run with a non-zero exit; the phases, in order:
    ``--dg``; each comparison on each device's own pyramids unless the
    limits fail, then the CPU on the card's (``card_pyramids``), each cloud
    level or query row it would build otherwise held to a voxel-face or
-   radius tie (``pyramid_tie_verdict``). Every DG path runs the FPS
-   kernel (DGCNN's and PointNet's SA-node once a forward, PTran's four
-   TransitionDowns, PointNet++'s two set abstractions), PointNet++'s and
-   PTran's classifiers too, the DGCNN and PointNet classifiers none;
-   KPConv launches no kernel at all; no path at 1024 points launches
-   min-dists;
+   radius tie (``pyramid_tie_verdict``); then KPConv's FPS pyramid with
+   deformable blocks (``KPCONV_FPS_YAML``: the shipped config with
+   ``pyramid: fps`` and blocks 9 to 13 deformable) through the same front
+   door, one epoch and ``--resume`` stacked and a third sequential, every
+   epoch's regularizer finite and positive, and its DG ``_loss`` at B=8 on
+   the card against the CPU, stacked and sequential, held in the same
+   way (an FPS level the CPU would sample otherwise fails outright: the
+   kernel is exact). Every DG path runs the FPS kernel (DGCNN's and
+   PointNet's SA-node once a forward, PTran's four TransitionDowns,
+   PointNet++'s two set abstractions, KPConv's FPS pyramid four, and four
+   more in its occupancy guard at start-up), PointNet++'s and PTran's
+   classifiers too, the DGCNN and PointNet classifiers none; KPConv on
+   the grid pyramid launches no kernel at all; no path at 1024 points
+   launches min-dists;
 5. times, with CUDA events after warm-up: each kernel shape beside its bound,
    its plain version and, for min-dists, ``torch.cdist`` and ``amin``; FPS
    at every shape above, through its launcher, the wrapper and the
@@ -184,7 +194,9 @@ ends the run with a non-zero exit; the phases, in order:
    val at 2 bytes) and bf16 plain versions, the backward split by kernel;
    then KPConv's DG step (the shipped config's losses) at B=64+64 and at
    its own 16+16, sequential, stacked, stacked, sequential on one trainer,
-   and its eval forward per batch of 64; last, the source-only step at
+   and its eval forward per batch of 64, on the grid pyramid and then on
+   the FPS pyramid with deformable blocks (the first run of each forward
+   in each cell profiled); last, the source-only step at
    B=64 and the eval forward per batch of 64 of the five classifiers, and
    the alternating step at B=64+64 (naive DGCNN, uda PointNet), each with
    its busy share, kernels a step and peak memory, its launches counted as
@@ -262,6 +274,24 @@ MAX_ARGMAX_DISAGREE = 1
 CARD_B = 8
 MAX_LOSS_REL = 1e-3
 MAX_GRAD_REL_L2 = 1e-2
+# KPConv's f32 gradients at its initial weights are rounding-bound on any
+# device: the instance norms of the KPConv ops' outputs, whose variance
+# over a cloud is 5e-6 to 6e-4 against eps = 1e-5, make the gradient
+# change fast with the activations (in float64 on the CPU, weights moved by
+# 1e-7 relative move a leaf's gradient by 3.7e-3 relative L2), so an
+# ulp's difference in any activation moves it by 1e-2. Measured, on the
+# same pyramid at B=8: the CPU's own f32 lies from its f64 up to 2.7e-2 in
+# a leaf of the shipped grid network, 3.5e-2 of the rigid FPS one and
+# 1.4e-2 of the deformable FPS one on one CPU and 3.3e-3 on another, and
+# the card 1.2e-2 from the CPU. So on the FPS pyramid the f32 gradients
+# are held to KPCONV_F32_GRAD_REL_L2, and the gradients themselves are
+# checked in float64: the card and the CPU each in f64 on the card's
+# pyramids, the losses within F64_LOSS_REL and every gradient leaf within
+# F64_GRAD_REL_L2 (the tests' float64 limits; a leaf zero up to rounding
+# measured against 1e-2 of the largest).
+KPCONV_F32_GRAD_REL_L2 = 5e-2
+F64_LOSS_REL = 1e-9
+F64_GRAD_REL_L2 = 1e-6
 # With BN groups the DGCNN's EdgeConv features hold many near-tied
 # neighbours, and one neighbour chosen otherwise moves some gradient leaves
 # by several percent on any device: on the CPU alone, float32 against
@@ -416,11 +446,14 @@ MIN_DIST_REL = 1e-6
 # points, PTran's four TransitionDowns at 1024 points, PointNet++'s two set
 # abstractions (512 of 1024 points, then 128 of 512), ragged clouds, a
 # 2-block cluster over 512 steps, and clusters of up to 8 blocks at small B
-# (the plain loop's steps over such clouds take the time there);
+# (the plain loop's steps over such clouds take the time there); then the
+# KPConv FPS pyramid's levels (1024 -> 256 -> 64 -> 32 -> 16), its last two
+# at B and all four at 2B, the stacked step's 64+64 clouds;
 # FPS_REFUSED points are more than the launcher takes
 FPS_SHAPES = [(B, 1024, 64), (B, 1024, 256), (B, 256, 64), (B, 64, 16), (B, 16, 4),
               (B, 1024, 512), (B, 512, 128), (B, 1000, 250), (B, 4096, 64), (B, 4100, 64),
-              (B, 16384, 512), (4, 65536, 64), (2, 131072, 16)]
+              (B, 16384, 512), (4, 65536, 64), (2, 131072, 16), (B, 64, 32), (B, 32, 16),
+              (2 * B, 1024, 256), (2 * B, 256, 64), (2 * B, 64, 32), (2 * B, 32, 16)]
 FPS_REFUSED = 131073
 # the EdgeConv kernels at the N=4096 shapes of DGCNN blocks 1 and 4 and of
 # the SA-node (every backbone's), at B=64; the backward's check at block 4
@@ -499,7 +532,15 @@ MAIN_PATHS = {
     ("KPConv", N_POINTS): ((0, 0, 0, 0, 0, 0), (0, 0, 0, 0, 0, 0)),
     ("KPConv", N_POINTS, "stacked"): ((0, 0, 0, 0, 0, 0), (0, 0, 0, 0, 0, 0)),
     ("KPConv", N_POINTS, "source"): ((0, 0, 0, 0, 0, 0), (0, 0, 0, 0, 0, 0)),
+    # KPConv on the FPS pyramid, deformable or not: its four FPS a forward,
+    # 1024 -> 256 -> 64 -> 32 -> 16 points, and no other kernel (the
+    # deformable ops are PyTorch's); the occupancy guard's pyramid at
+    # start-up launches KPCONV_FPS_GUARD more
+    ("KPConv", N_POINTS, "fps"): ((0, 0, 0, 0, 8, 0), (0, 0, 0, 0, 4, 0)),
+    ("KPConv", N_POINTS, "fps stacked"): ((0, 0, 0, 0, 4, 0), (0, 0, 0, 0, 4, 0)),
 }
+# the FPS pyramid's start-up launches: the occupancy guard's four FPS
+KPCONV_FPS_GUARD = {"fps": 4}
 # the new trainers' configs: the source-only one (PointNet, with --set Model
 # for the others) and the naive-MMD DG baseline (DGCNN)
 SOURCE_YAML = os.path.join(HERE, "tools", "cfgs", "cfgs_local", "direct_inference.yaml")
@@ -524,6 +565,18 @@ CONVERTED = ("Pointnet", "DGCNN", "Pointnet2")
 KPCONV_YAML = os.path.join(HERE, "tools", "cfgs", "cfgs_local",
                            "DG_unified_loss_onedataset_modelnet_KPConv.yaml")
 KPCONV_B = 16
+# KPConv's FPS pyramid and deformable blocks (4o): the shipped config with
+# pyramid: fps and every block after the third strided one deformable, the
+# pattern of the KPConv authors' deformable configurations
+KPCONV_FPS_ARCH = ("simple", "resnetb", "resnetb_strided", "resnetb", "resnetb",
+                   "resnetb_strided", "resnetb", "resnetb", "resnetb_strided",
+                   "resnetb_deformable", "resnetb_deformable", "resnetb_deformable_strided",
+                   "resnetb_deformable", "resnetb_deformable")
+KPCONV_FPS_YAML = """_BASE_CONFIG_: {base}
+MODEL_CFG:
+    pyramid: fps
+    architecture: [{arch}]
+"""
 # The bf16 policy (PRECISION: bf16): the EdgeConv kernels' values_bf16 mode
 # (DGCNN and PointNet), instantiated in the same sources, as (label, kernel
 # name, source); the --set that turns it on; phase 5's cells that run the
@@ -1351,14 +1404,17 @@ def stacked_forward(on: bool):
     return env("SUG_STACKED_FORWARD", "1" if on else "0")
 
 
-def entry_run(what, main, argv, model_name, num_points, variant, loss_keys, backward_calls):
+def entry_run(what, main, argv, model_name, num_points, variant, loss_keys, backward_calls,
+              startup=None):
     """One run of a training front door, ``main(argv)``, on the card,
     counting launches; fails unless every loss of ``loss_keys`` is finite in
     each epoch and the counts are ``MAIN_PATHS``' for the path
-    (``model_name`` at ``num_points``, ``variant``) per step and eval batch,
-    PTran's backward kernels those of ``backward_calls`` backward calls a
-    step (``va_bwd_launches_per_call``). Returns the result, the counts and
-    the backward kernels' counts."""
+    (``model_name`` at ``num_points``, ``variant``) per step and eval batch
+    plus ``startup`` (launches by name at start-up), PTran's backward
+    kernels those of ``backward_calls`` backward calls a step
+    (``va_bwd_launches_per_call``). Returns the result, the counts and the
+    backward kernels' counts."""
+    startup = {k: (startup or {}).get(k, 0) for k in COUNTERS}
     reset_counts()
     t0 = time.perf_counter()
     result = main(argv)
@@ -1367,8 +1423,8 @@ def entry_run(what, main, argv, model_name, num_points, variant, loss_keys, back
     seconds = time.perf_counter() - t0
     steps = sum(h["steps"] for h in result["history"])
     evals = sum(h["eval_batches"] for h in result["history"])
-    per_step = {k: (v - expected(model_name, num_points, 0, evals, variant)[k]) / max(steps, 1)
-                for k, v in got.items() if v}
+    per_step = {k: (v - startup[k] - expected(model_name, num_points, 0, evals, variant)[k])
+                / max(steps, 1) for k, v in got.items() if v}
     print(f"{what} {model_name} --num_points {num_points} epochs "
           f"{[h['epoch'] for h in result['history']]}: {steps} steps, {evals} eval batches in "
           f"{seconds:.1f} s; launches {got}, per step {per_step}"
@@ -1378,7 +1434,8 @@ def entry_run(what, main, argv, model_name, num_points, variant, loss_keys, back
               + f", {h['ms_per_step']:.1f} ms per step incl. host", flush=True)
         if not all(math.isfinite(h[k]) for k in loss_keys):
             fail(f"{what} {model_name} epoch {h['epoch']}: non-finite loss {h}")
-    want = expected(model_name, num_points, steps, evals, variant)
+    want = {k: v + startup[k]
+            for k, v in expected(model_name, num_points, steps, evals, variant).items()}
     want_by_kernel = {kernel: (backward_calls * steps * n if model_name == "PTran" else 0)
                       for kernel, n in va_bwd_launches_per_call(B).items()}
     if steps == 0 or got != want or by_kernel != want_by_kernel:
@@ -1603,10 +1660,10 @@ def near_tie_verdict(tag, differ, allowed=None, near_tie=NEAR_TIE_REL, policy=""
 
 
 def held_card_against_cpu(tag, case, replay, replayer=None, verdict=None,
-                          replayed="EdgeConv neighbours"):
+                          replayed="EdgeConv neighbours", grad_limit=MAX_GRAD_REL_L2):
     """``case(device)`` -> (losses, gradients or None) pairs, on the card and
     on the CPU plain path, every loss held to MAX_LOSS_REL and every
-    gradient leaf to MAX_GRAD_REL_L2. With ``replay`` the CPU runs on the
+    gradient leaf to ``grad_limit``. With ``replay`` the CPU runs on the
     card's EdgeConv neighbours (``replayer``, by default ``card_neighbours``;
     ``card_ball_groups`` replays PointNet++'s ball queries), each row it
     would choose otherwise held to a near tie (``verdict``, by default
@@ -1619,13 +1676,14 @@ def held_card_against_cpu(tag, case, replay, replayer=None, verdict=None,
         card = case("cuda")
 
     def worst(cpu):
-        gaps = [(rel, k, MAX_LOSS_REL) for (lc, _), (lw, _) in zip(card, cpu)
+        gaps = [(rel, k, MAX_LOSS_REL, "loss") for (lc, _), (lw, _) in zip(card, cpu)
                 for k, rel in loss_gaps(lc, lw).items()]
-        gaps += [(rel, n, MAX_GRAD_REL_L2) for (_, gc), (_, gw) in zip(card, cpu)
+        gaps += [(rel, n, grad_limit, "grad")
+                 for (_, gc), (_, gw) in zip(card, cpu)
                  if gw is not None for n, rel in grad_gaps(gc, gw).items()]
         over = [g for g in gaps if g[0] > g[2]]
-        losses = max(g[0] for g in gaps if g[2] == MAX_LOSS_REL)
-        grads = max([g for g in gaps if g[2] == MAX_GRAD_REL_L2], default=(0.0, "none"))
+        losses = max(g[0] for g in gaps if g[3] == "loss")
+        grads = max([g for g in gaps if g[3] == "grad"], default=(0.0, "none"))
         return over, f"losses within {losses:.3e} relative, gradients within {grads[0]:.3e} " \
                      f"relative L2 (worst {grads[1]})"
 
@@ -1643,7 +1701,8 @@ def held_card_against_cpu(tag, case, replay, replayer=None, verdict=None,
         on = f"on the card's {replayed} ({verdict(tag, differ)})"
     if over:
         fail(f"{tag} card vs CPU {on}: {len(over)} outside their limits, the worst " + "; ".join(
-            f"{name} {rel:.3e} (> {limit})" for rel, name, limit in sorted(over, reverse=True)[:5]))
+            f"{name} {rel:.3e} (> {limit:.3e})"
+            for rel, name, limit, _ in sorted(over, reverse=True)[:5]))
     print(f"{tag}, card vs CPU {on}: {within}", flush=True)
     return card
 
@@ -1861,12 +1920,13 @@ def converted_serving(infer, rng, dev):
 
 
 def to_cpu(tree):
-    """A pyramid (dict of lists of tensors and (idx, mask) pairs) on the CPU."""
+    """A pyramid (dict of lists of tensors and (idx, mask) pairs, the FPS
+    pyramid's masks None) on the CPU."""
     if isinstance(tree, dict):
         return {k: to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_cpu(v) for v in tree)
-    return tree.cpu()
+    return None if tree is None else tree.cpu()
 
 
 def face_gap(points, valid, dl):
@@ -1876,30 +1936,38 @@ def face_gap(points, valid, dl):
     return float((p - dl * torch.round(p / dl)).abs().min()) if len(p) else float("inf")
 
 
-def pyramid_tie_gaps(build, card, cfg, differ):
+def pyramid_tie_gaps(build, card, cfg, differ, fps_start=None):
     """Where the CPU, from the card's points, builds another KPConv pyramid
     than the card's ``card``: per cloud and level, a voxel subsample whose
     valid mask differs or whose points differ beyond 1e-4 (the CPU's own
     pyramid from the same clouds; the cloud's gap is the distance of its
     previous level's point nearest a face of this level's grid, and only
-    the first differing level of a cloud counts); per valid query row of
-    the neighbour and pool queries (the CPU's own query on the card's
-    points), a row whose set differs (its gap the |d² − r²| / r², in
+    the first differing level of a cloud counts), or, on the FPS pyramid
+    (from ``fps_start``), an FPS level whose points differ at all (the
+    kernel is exact to the plain loop: its gap is infinite); per valid query
+    row of the neighbour and pool queries (the CPU's own query on the
+    card's points), a row whose set differs (its gap the |d² − r²| / r², in
     float64, of the point nearest the radius among those in one set and
     not the other). ``differ`` gathers [rows and clouds, those that differ,
     the largest gap, 0]. ``build`` is ``build_pyramid``."""
     from sug_tpu_torch.models import kpconv
 
-    own = build(card["points"][0], cfg)
-    dl, r0 = cfg["grid_dl"], cfg["grid_dl"] * cfg["conv_radius"]
+    grid = cfg["pyramid"] == "grid"
+    own = build(card["points"][0], cfg, fps_start)
+    dl = cfg["grid_dl"] if grid else cfg["first_subsampling_dl"]
+    r0 = dl * cfg["conv_radius"]
     done = torch.zeros(card["points"][0].shape[0], dtype=torch.bool)
     for lvl in range(1, len(card["points"])):
-        same = (own["valid"][lvl] == card["valid"][lvl]).all(-1) & (
-            (own["points"][lvl] - card["points"][lvl]).abs().amax((-1, -2)) <= 1e-4)
+        if grid:
+            same = (own["valid"][lvl] == card["valid"][lvl]).all(-1) & (
+                (own["points"][lvl] - card["points"][lvl]).abs().amax((-1, -2)) <= 1e-4)
+        else:
+            same = (own["points"][lvl] == card["points"][lvl]).all(-1).all(-1)
         for b in torch.nonzero(~same & ~done).flatten().tolist():
             differ[1] += 1
             differ[2] = max(differ[2], face_gap(card["points"][lvl - 1][b],
-                                                card["valid"][lvl - 1][b], dl * 2**lvl))
+                                                card["valid"][lvl - 1][b], dl * 2**lvl)
+                            if grid else float("inf"))
         done |= ~same
         differ[0] += len(same)
     for lvl in range(len(card["points"])):
@@ -1910,7 +1978,7 @@ def pyramid_tie_gaps(build, card, cfg, differ):
             idx, mask = card[key][lvl]
             s_pts, q_pts = card["points"][lvl], card["points"][q_lvl]
             mine, mine_mask = kpconv.radius_neighbors_masked(r, idx.shape[-1], s_pts, q_pts)
-            q_valid = card["valid"][q_lvl] > 0
+            q_valid = card["valid"][q_lvl] > 0 if grid else torch.ones_like(mask[..., 0] > 0)
             rows = ((mine_mask != mask).any(-1) | ((mine != idx) & (mask > 0)).any(-1)) & q_valid
             differ[0] += int(q_valid.sum())
             for b, q in torch.nonzero(rows).tolist():
@@ -1919,6 +1987,31 @@ def pyramid_tie_gaps(build, card, cfg, differ):
                 d2 = (s_pts[b, sorted(sets)].double() - q_pts[b, q].double()).square().sum(-1)
                 differ[1] += 1
                 differ[2] = max(differ[2], float(((d2 - r * r).abs() / (r * r)).min()))
+
+
+@contextlib.contextmanager
+def pyramids_replayed(calls):
+    """KPConv's ``build_pyramid`` returns the pyramids of ``calls`` (the
+    card's, as ``card_pyramids`` records them), one a call in order, on the
+    clouds' device and with their points and masks in the clouds' dtype:
+    the card's choices, as they are, for a float64 run on either device."""
+    from sug_tpu_torch.models import kpconv
+
+    build, replay = kpconv.build_pyramid, iter(calls)
+
+    def replaying(pc, cfg, fps_start=None):
+        pyr = next(replay)
+        like = lambda t: t.to(pc.device, pc.dtype)  # noqa: E731
+        return {"points": [like(p) for p in pyr["points"]],
+                "neighbors": [(i.to(pc.device), like(m)) for i, m in pyr["neighbors"]],
+                "pools": [(i.to(pc.device), like(m)) for i, m in pyr["pools"]],
+                "valid": None if pyr["valid"] is None else [like(v) for v in pyr["valid"]]}
+
+    kpconv.build_pyramid = replaying
+    try:
+        yield
+    finally:
+        kpconv.build_pyramid = build
 
 
 @contextlib.contextmanager
@@ -1932,14 +2025,14 @@ def card_pyramids(device, calls, order, differ):
 
     build, replay = kpconv.build_pyramid, iter(calls)
 
-    def recording(pc, cfg):
-        pyr = build(pc, cfg)
+    def recording(pc, cfg, fps_start=None):
+        pyr = build(pc, cfg, fps_start)
         calls.append(to_cpu(pyr))
         return pyr
 
-    def replaying(pc, cfg):
+    def replaying(pc, cfg, fps_start=None):
         card = next(replay)
-        pyramid_tie_gaps(build, card, cfg, differ)
+        pyramid_tie_gaps(build, card, cfg, differ, fps_start)
         return card
 
     kpconv.build_pyramid = recording if device == "cuda" else replaying
@@ -1966,13 +2059,14 @@ def pyramid_tie_verdict(tag, differ):
             f"and query rows, each within {widest:.3e} of a voxel face or of r²")
 
 
-def held_kpconv(tag, case):
+def held_kpconv(tag, case, grad_limit=MAX_GRAD_REL_L2):
     """``held_card_against_cpu`` for a KPConv case: each device on its own
     pyramids unless the limits fail, then the CPU on the card's
     (``card_pyramids``), each cloud level or row it would build otherwise
     held to a tie (``pyramid_tie_verdict``)."""
     return held_card_against_cpu(tag, case, replay=False, replayer=card_pyramids,
-                                 verdict=pyramid_tie_verdict, replayed="KPConv pyramids")
+                                 verdict=pyramid_tie_verdict, replayed="KPConv pyramids",
+                                 grad_limit=grad_limit)
 
 
 def kpconv_logits(tag, load, clouds):
@@ -1994,16 +2088,22 @@ def kpconv_logits(tag, load, clouds):
           flush=True)
 
 
-def kpconv_runs(train_main, rng):
-    """The shipped ``DG_unified_loss_onedataset_modelnet_KPConv.yaml`` as it
-    stands through ``train_dg_single_gpu`` at its batch of KPCONV_B and
-    1024 points on a synthetic PointDA tree: one epoch, ``--resume`` for a
-    second (both on the stacked forward, KPConv's default), and
-    ``--resume`` for a third with ``SUG_KPCONV_STACKED=0`` (the sequential
-    forward); the occupancy guard's line in each run's log, every launch
-    count zero (``MAIN_PATHS``). Returns the summed counts."""
+def kpconv_runs(train_main, rng, cfg_file=KPCONV_YAML, fps=False):
+    """``cfg_file``, by default the shipped
+    ``DG_unified_loss_onedataset_modelnet_KPConv.yaml`` as it stands,
+    through ``train_dg_single_gpu`` at its batch of KPCONV_B and 1024 points
+    on a synthetic PointDA tree: one epoch, ``--resume`` for a second (both
+    on the stacked forward, KPConv's default), and ``--resume`` for a third
+    with ``SUG_KPCONV_STACKED=0`` (the sequential forward); the occupancy
+    guard's line in each run's log, the launches as ``MAIN_PATHS`` says:
+    none on the grid pyramid, and with ``fps`` (a config on the FPS pyramid
+    with deformable blocks) four FPS a forward and KPCONV_FPS_GUARD at
+    start-up, every epoch's regularizer (``loss_reg``) finite and non-zero.
+    Returns the summed counts."""
     from sug_tpu_torch.engine import dg_trainer
 
+    tag = "KPConv FPS pyramid, deformable" if fps else "shipped KPConv config"
+    loss_keys = ("loss_cls", "loss_geo", "loss_sem") + (("loss_reg",) if fps else ())
     total = dict.fromkeys(COUNTERS, 0)
     stacked_calls, forward_stacked = [], dg_trainer.DGTrainer._forward_stacked
 
@@ -2018,21 +2118,24 @@ def kpconv_runs(train_main, rng):
             write_pointda_tree(root, rng)
             for epochs, kp_stacked in ((1, None), (2, None), (3, "0")):
                 extra = ("--resume", latest_checkpoint(root, epochs - 1)) if epochs > 1 else ()
-                argv = ["--source", "modelnet", "--cfg", KPCONV_YAML, "--batch_size",
+                argv = ["--source", "modelnet", "--cfg", cfg_file, "--batch_size",
                         str(KPCONV_B), "--num_points", str(N_POINTS), "--device", "cuda",
                         "--ckpt_save_interval", "1", "--fix_random_seed", *extra, "--set",
                         "DATA_ROOT", root, "OPTIMIZATION.NUM_EPOCHES", str(epochs)]
                 stacked_calls.clear()
+                variant = " ".join((["fps"] if fps else []) + ([] if kp_stacked else ["stacked"]))
                 with env("SUG_KPCONV_STACKED", kp_stacked), env("SUG_STACKED_FORWARD", None):
                     result, got, _ = entry_run(
-                        f"train_dg_single_gpu (shipped KPConv config, batch {KPCONV_B}"
+                        f"train_dg_single_gpu ({tag}, batch {KPCONV_B}"
                         + (", SUG_KPCONV_STACKED=0" if kp_stacked else ", stacked") + ")",
-                        train_main, argv, "KPConv", N_POINTS,
-                        None if kp_stacked else "stacked",
-                        ("loss_cls", "loss_geo", "loss_sem"), backward_calls=2)
+                        train_main, argv, "KPConv", N_POINTS, variant or None, loss_keys,
+                        backward_calls=2, startup=KPCONV_FPS_GUARD if fps else None)
                 steps = sum(h["steps"] for h in result["history"])
                 if [h["epoch"] for h in result["history"]] != [epochs - 1]:
                     fail(f"KPConv run ran epochs {[h['epoch'] for h in result['history']]}")
+                if fps and not all(h["loss_reg"] > 0 for h in result["history"]):
+                    fail(f"{tag} epoch {epochs - 1}: the regularizer is not positive: "
+                         f"{result['history']}")
                 if len(stacked_calls) != (0 if kp_stacked else steps):
                     fail(f"KPConv epoch {epochs - 1}: {len(stacked_calls)} stacked forwards in "
                          f"{steps} steps")
@@ -2049,15 +2152,20 @@ def kpconv_runs(train_main, rng):
     return total
 
 
-def kpconv_card_against_cpu(cfg):
+def kpconv_card_against_cpu(cfg, what="KPConv"):
     """At B=``CARD_B`` with the same weights and batch, on the card and on
     the CPU plain path (``held_kpconv``): one KPConv DG ``_loss(train=True)``
-    with the shipped config's losses (its ClassWeighting criterion from a
-    synthetic source split), on the stacked forward, its losses with the MMD
-    losses on and off and its gradients with them off; and the same on the
-    sequential forward."""
+    of ``cfg`` (the shipped config's losses, its ClassWeighting criterion
+    from a synthetic source split; on the FPS pyramid the FPS from index 0),
+    on the stacked forward, its losses with the MMD losses on and off (a
+    deformable config's regularizer among them) and its gradients with them
+    off; and the same on the sequential forward. On the FPS pyramid the f32
+    gradients are held to KPCONV_F32_GRAD_REL_L2, and the same loss runs in
+    float64 on both devices on the card's pyramids, held to F64_LOSS_REL
+    and F64_GRAD_REL_L2 (the comment at KPCONV_F32_GRAD_REL_L2 says why)."""
     from sug_tpu_torch.data.datasets import PointCloudDataset, make_synthetic_pointda
     from sug_tpu_torch.engine.dg_trainer import DGTrainer, make_criterion
+    from sug_tpu_torch.models.kpconv import kpconv_config
 
     pts, labels = make_synthetic_pointda(num_per_class=2, num_points=N_POINTS, seed=17)
     ds = PointCloudDataset("modelnet", pts, labels, num_points=N_POINTS, model="KPConv")
@@ -2067,34 +2175,58 @@ def kpconv_card_against_cpu(cfg):
                 (ds.pts[:CARD_B], ds.labels[:CARD_B].astype(np.int64),
                  ds.pts[-CARD_B:], ds.labels[-CARD_B:].astype(np.int64))]
 
-    def dg(dev):
+    def dg(dev, dtype=torch.float32):
         tr = DGTrainer(cfg, model_name="KPConv", augment=False, device=dev, seed=0)
         tr.criterion = make_criterion(cfg["OPTIMIZATION"], ds, 10, tr.device)
+        tr.model.to(dtype)
+        data = [a.to(dtype) if a.is_floating_point() else a for a in batch(dev)]
         out = []
         for mmd_on in (True, False):
-            total, metrics = tr._loss(*batch(dev), mmd_on=mmd_on, train=True)
+            total, metrics = tr._loss(*data, mmd_on=mmd_on, train=True)
             out.append(({f"{k} (mmd {mmd_on})": v.item() for k, v in metrics.items()},
                         None if mmd_on else grads_by_name(tr, tr.grads(total))))
         return out
 
+    fps = kpconv_config(cfg.get("MODEL_CFG"))["pyramid"] != "grid"
     for kp_stacked in ("1", "0"):
+        tag = (f"{what} DG _loss(train=True) at B={CARD_B}, N={N_POINTS} "
+               f"({'stacked' if kp_stacked == '1' else 'sequential'})")
         with env("SUG_KPCONV_STACKED", kp_stacked), env("SUG_STACKED_FORWARD", None):
-            held_kpconv(f"KPConv DG _loss(train=True) at B={CARD_B}, N={N_POINTS} "
-                        f"({'stacked' if kp_stacked == '1' else 'sequential'})", dg)
+            held_kpconv(tag, dg, KPCONV_F32_GRAD_REL_L2 if fps else MAX_GRAD_REL_L2)
+            if not fps:
+                continue
+            calls = []
+            with card_pyramids("cuda", calls, None, [0, 0, 0.0, 0]):
+                dg("cuda")
+            f64 = []
+            for dev in ("cuda", "cpu"):
+                with pyramids_replayed(calls):
+                    f64.append(dg(dev, torch.float64))
+            losses = {k: v for (lc, _), (lw, _) in zip(*f64) for k, v in loss_gaps(lc, lw).items()}
+            grads = grad_gaps(f64[0][1][1], f64[1][1][1])
+            worst = (max(losses, key=losses.get), max(grads, key=grads.get))
+            print(f"{tag}, float64 on the card's pyramids, card vs CPU: losses within "
+                  f"{losses[worst[0]]:.3e} relative ({worst[0]}), gradients within "
+                  f"{grads[worst[1]]:.3e} relative L2 ({worst[1]})", flush=True)
+            if losses[worst[0]] > F64_LOSS_REL or grads[worst[1]] > F64_GRAD_REL_L2:
+                fail(f"{tag} in float64, card vs CPU: {worst[0]} {losses[worst[0]]:.3e} "
+                     f"(limit {F64_LOSS_REL}), {worst[1]} {grads[worst[1]]:.3e} (limit "
+                     f"{F64_GRAD_REL_L2})")
 
 
-def time_cell(what, model_name, variant, fn, iters, clouds, smi):
+def time_cell(what, model_name, variant, fn, iters, clouds, smi, profile=True):
     """One timed cell of a new path's step: ms, clouds/s, peak memory, busy
-    share and kernels a step, its launches checked against ``MAIN_PATHS``
-    (2 warm-up, ``iters`` timed and 2 profiled steps)."""
+    share and kernels a step (where ``profile``; a profile of a host-bound
+    step of some 6000 kernels takes seconds), its launches checked against
+    ``MAIN_PATHS`` (2 warm-up, ``iters`` timed and 2 profiled steps)."""
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     ms = timed_ms(fn, iters=iters)
     peak = torch.cuda.max_memory_allocated()
-    busy = profile_device(fn, what, ms, iters=2)
-    check_launches(what, model_name, N_POINTS, iters + 4, 0, variant)
+    busy = profile_device(fn, what, ms, iters=2) if profile else None
+    check_launches(what, model_name, N_POINTS, iters + (4 if profile else 2), 0, variant)
     print(f"{what}: {ms:.3f} ms per step, {clouds / ms * 1e3:.1f} clouds/s, busy "
           + ("not measured" if busy is None else f"{busy[0]:.1%}, {busy[1]:.0f} kernels a step")
           + f"; peak device memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above "
@@ -2140,17 +2272,22 @@ def time_new_paths(step_args, baseline_cfg, smi):
         del trainer
 
 
-def time_kpconv(cfg, model, batch, step_args, smi):
-    """Phase 5's KPConv cells (the shipped config, ``cfg``): the DG step
-    with its losses at B+B and at its own KPCONV_B+KPCONV_B clouds,
-    sequential, stacked, stacked, sequential on one trainer each, and a
-    summary of the runs; the eval forward of 4o's serving ``model`` per
-    batch of B (``batch``). Each with its busy share, kernels a step and
-    peak memory, its launches (none) checked against ``MAIN_PATHS``."""
+def time_kpconv(cfg, model, batch, step_args, smi, fps=False):
+    """Phase 5's KPConv cells of ``cfg`` (the shipped config, or with
+    ``fps`` its FPS pyramid with deformable blocks): the DG step with its
+    losses at B+B and at its own KPCONV_B+KPCONV_B clouds, sequential,
+    stacked, stacked, sequential on one trainer each, and a summary of the
+    runs; the eval forward of ``model`` (4o's serving model; None: the B+B
+    trainer's) per batch of B (``batch``). Each with its peak memory and its
+    launches checked against ``MAIN_PATHS`` (none on the grid pyramid, four
+    FPS a forward on the FPS one), the first run of each forward in each
+    cell and the eval forward also with its busy share and kernels a
+    step."""
     from sug_tpu_torch.data.datasets import PointCloudDataset, make_synthetic_pointda
     from sug_tpu_torch.engine.dg_trainer import DGTrainer, make_criterion
     from sug_tpu_torch.models.net_mda import ensemble_logits
 
+    name = "KPConv FPS pyramid, deformable" if fps else "KPConv"
     pts, labels = make_synthetic_pointda(num_per_class=2, num_points=N_POINTS, seed=17)
     ds = PointCloudDataset("modelnet", pts, labels, num_points=N_POINTS, model="KPConv")
     runs = {}
@@ -2160,12 +2297,17 @@ def time_kpconv(cfg, model, batch, step_args, smi):
         trainer.criterion = make_criterion(cfg["OPTIMIZATION"], ds, 10, trainer.device)
         for stacked in (False, True, True, False):
             label = "stacked" if stacked else "sequential"
+            variant = " ".join((["fps"] if fps else []) + (["stacked"] if stacked else []))
+            cell = runs.setdefault(f"B={b}+{b} {label}", [])
             with env("SUG_KPCONV_STACKED", "1" if stacked else "0"), \
                     env("SUG_STACKED_FORWARD", None):
-                runs.setdefault(f"B={b}+{b} {label}", []).append(time_cell(
-                    f"KPConv DG train step ({label}, B={b}+{b}, N={N_POINTS}, the shipped "
-                    "config's losses, augmentation)", "KPConv", "stacked" if stacked else None,
-                    lambda: trainer.train_step(*args, 1e-4, 1e-4, 1e-4), 5, 2 * b, smi))
+                cell.append(time_cell(
+                    f"{name} DG train step ({label}, B={b}+{b}, N={N_POINTS}, the shipped "
+                    "config's losses, augmentation)", "KPConv", variant or None,
+                    lambda: trainer.train_step(*args, 1e-4, 1e-4, 1e-4), 5, 2 * b, smi,
+                    profile=not cell))
+        if model is None:
+            model = trainer.model.eval()
         del trainer
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated()
@@ -2174,18 +2316,18 @@ def time_kpconv(cfg, model, batch, step_args, smi):
     with torch.no_grad():
         ms = timed_ms(lambda: ensemble_logits(model, batch), iters=10)
         peak = torch.cuda.max_memory_allocated()
-        busy = profile_device(lambda: ensemble_logits(model, batch), "KPConv inference forward",
+        busy = profile_device(lambda: ensemble_logits(model, batch), f"{name} inference forward",
                               ms)
-    check_launches("KPConv inference forward", "KPConv", N_POINTS, 0, 15)
-    print(f"forward (NetMDA KPConv eval, ensemble logits), B={B}, N={N_POINTS}: {ms:.3f} ms per "
+    check_launches(f"{name} inference forward", "KPConv", N_POINTS, 0, 15, "fps" if fps else None)
+    print(f"forward (NetMDA {name} eval, ensemble logits), B={B}, N={N_POINTS}: {ms:.3f} ms per "
           f"batch, {B / ms * 1e3:.1f} clouds/s, busy "
           + ("not measured" if busy is None else f"{busy[0]:.1%}, {busy[1]:.0f} kernels")
           + f"; peak device memory {peak / 2**20:.1f} MiB ({(peak - held) / 2**20:.1f} MiB above "
           f"what the script held before); card {smi}", flush=True)
-    print(f"KPConv DG train step, sequential against stacked (card: {smi}; runs in turns):",
+    print(f"{name} DG train step, sequential against stacked (card: {smi}; runs in turns):",
           flush=True)
     for cell, rs in runs.items():
-        print(f"  A/B KPConv {cell}: " + "; ".join(
+        print(f"  A/B {name} {cell}: " + "; ".join(
             f"{r['ms']:.4f} ms, {r['clouds_per_s']:.1f} clouds/s, busy "
             + ("not measured" if r["busy"] is None else
                f"{r['busy']:.1%}, {r['kernels']:.0f} kernels a step")
@@ -3406,6 +3548,24 @@ def main() -> None:
     print(f"KPConv, phase 4: {time.perf_counter() - t_kp:.1f} s; launches {kp_launches}",
           flush=True)
 
+    # 4o, the FPS pyramid and deformable blocks: the shipped config with
+    # pyramid: fps and blocks 9-13 deformable (KPCONV_FPS_YAML) through the DG
+    # front door at its batch of 16 (one epoch and --resume stacked, a third
+    # sequential), the regularizer in every epoch's loss; one DG loss at B=8 on
+    # the card against the CPU, stacked and sequential; FPS 4 a forward and 4
+    # at start-up
+    t_kps = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_kpconv_fps_") as tmp:
+        kps_yaml = os.path.join(tmp, "kpconv_fps_deformable.yaml")
+        with open(kps_yaml, "w") as f:
+            f.write(KPCONV_FPS_YAML.format(base=KPCONV_YAML, arch=", ".join(KPCONV_FPS_ARCH)))
+        kps_launches = kpconv_runs(train_dg_single_gpu.main, rng17, kps_yaml, fps=True)
+        _, kps_cfg = parser_config(["--cfg", kps_yaml])
+    fps_launches += kps_launches["fps"]
+    kpconv_card_against_cpu(kps_cfg, "KPConv FPS pyramid, deformable")
+    print(f"KPConv FPS pyramid, deformable, phase 4: {time.perf_counter() - t_kps:.1f} s; "
+          f"launches {kps_launches}", flush=True)
+
     # 5. times
     print(f"times (CUDA events), card: {smi}", flush=True)
     entry = {"name": "edgeconv_fwd", "route": "cuda",
@@ -3745,6 +3905,10 @@ def main() -> None:
     time_kpconv(kp_cfg, kp_model, kp_batch, step_args[N_POINTS], smi)
     del kp_model, kp_batch
     print(f"KPConv, phase 5: {time.perf_counter() - t_kp:.1f} s", flush=True)
+    t_kp = time.perf_counter()
+    time_kpconv(kps_cfg, None, step_args[N_POINTS][0], step_args[N_POINTS], smi, fps=True)
+    print(f"KPConv FPS pyramid, deformable, phase 5: {time.perf_counter() - t_kp:.1f} s",
+          flush=True)
     t_new = time.perf_counter()
     time_new_paths(step_args[N_POINTS], baseline_cfg, smi)
     print(f"source-only and alternating paths, phase 5: {time.perf_counter() - t_new:.1f} s",

@@ -2,7 +2,8 @@
 device (no mesh, native loader, profiler trace or multi-process).
 
 KPConv's pyramid occupancy on the first source clouds is logged at start-up
-(``check_neighbor_occupancy``). Per epoch: the cosine and dis learning rates, the GRL's λ
+(``check_neighbor_occupancy``, on the device: the FPS pyramid launches its
+four FPS there). Per epoch: the cosine and dis learning rates, the GRL's λ
 ``sin((epoch + 1) / max_epoch · π/2)``, ``PURE_CLS_EPOCH`` gating of the MMD
 losses, paired source/target split batches (shuffled by epoch), eval
 on the source test split and the two unseen datasets with best-accuracy
@@ -32,6 +33,8 @@ from sug_tpu_torch.utils.config import log_config_to_file, resolve_seed
 from sug_tpu_torch.utils.logging import open_run
 
 LOSS_KEYS = ("loss_cls", "loss_adv", "loss_geo", "loss_sem")
+# a deformable KPConv's regularizer, logged and kept where the steps report it
+REG_KEY = "loss_reg"
 
 
 def _make_train_iter(dataset, cfg, batch_size: int, seed: int):
@@ -135,12 +138,15 @@ def run_dg_training(args, cfg) -> Dict:
         n_seen = 0
         for bs, metrics in pending:
             n_seen += bs
-            for k in LOSS_KEYS:
+            for k in LOSS_KEYS + (REG_KEY,):
                 if k in metrics:
-                    totals[k] += float(metrics[k]) * bs
+                    totals[k] = totals.get(k, 0.0) + float(metrics[k]) * bs
         means = {k: v / max(n_seen, 1) for k, v in totals.items()}
         if pending:
             logger.info(f"Train Epoch {epoch} [{n_seen}] loss_cls {means['loss_cls']}")
+            if REG_KEY in means:
+                logger.info(f"loss_reg (the deformable KPConv regularizer): {means[REG_KEY]}")
+                writer.add_scalar("loss/reg", means[REG_KEY], epoch)
             if mmd_on:
                 logger.info(f"loss_adv: {means['loss_adv']} loss_geo_mmd {means['loss_geo']} "
                             f"loss_sem_mmd {means['loss_sem']}")

@@ -18,7 +18,10 @@ sequential. ``METHODS.GRL`` reverses the target forward's gradient into the
 generator by the λ that ``train_step`` is given.
 
 Loss semantics, as in the JAX package:
-- cls: 0.5·crit(head 1) + 0.5·crit(head 2) on the source batch;
+- cls: 0.5·crit(head 1) + 0.5·crit(head 2) on the source batch, plus, for
+  a KPConv with deformable blocks, ``p2p_fitting_regularizer`` (its
+  defaults) of the source forward's terms (the stacked forward's sliced to
+  the source rows), also reported as ``loss_reg``;
 - adv: −ADV_WEIGHT · discrepancy(target heads), added after the average;
 - TARGET_LOSS > 0: the target split's own cross terms (its own labels
   unless ``TARGET_LOSS_USES_SOURCE_LABELS``), else SRC_LOSS_WEIGHT · cls;
@@ -37,11 +40,9 @@ logits are f32; their 256-d mid features are bf16, as in the JAX package,
 and so is what the sem alignments other than ``SOFT_MMD`` compute from them.
 
 ``model_name`` is "DGCNN", "PTran", "Pointnet", "Pointnet2" or "KPConv"
-(its rigid network on the grid pyramid, ``MODEL_CFG`` its options); PTran's
-vector attention runs its bf16 mode under the policy, and Pointnet2 and
-KPConv refuse the policy (``NotImplementedError``). What the port does not
-have yet (deformable KPConv with its regularizer, its FPS pyramid) raises
-``NotImplementedError`` naming ROADMAP.md.
+(``MODEL_CFG`` its options: either pyramid, rigid or deformable blocks);
+PTran's vector attention runs its bf16 mode under the policy, and Pointnet2
+and KPConv refuse the policy (``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -57,7 +58,7 @@ from sug_tpu_torch.engine.optim import ThreeGroupOptimizer
 from sug_tpu_torch.losses.classification import cross_entropy, discrepancy, focal_loss
 from sug_tpu_torch.losses.mmd import PORTED_MMD, contrastive_loss_weighted, mmd_cal
 from sug_tpu_torch.models.bn import configure_from_cfg, set_bn_groups
-from sug_tpu_torch.models.kpconv import kpconv_config
+from sug_tpu_torch.models.kpconv import p2p_fitting_regularizer
 from sug_tpu_torch.models.net_mda import BACKBONES, NetMDA, ensemble_logits
 from sug_tpu_torch.models.precision import compute_dtype
 from sug_tpu_torch.ops.augment import augment_batch
@@ -102,8 +103,6 @@ def check_supported(cfg, model_name: str) -> None:
                           "the other backbones)")
     compute_dtype(cfg)  # an unknown PRECISION name raises ValueError
     configure_from_cfg(cfg)
-    if model_name == "KPConv":  # deformable blocks and the FPS pyramid raise
-        kpconv_config(cfg.get("MODEL_CFG", None))
     for key in ("GEO_MMD", "SEM_MMD"):
         if key in methods and methods[key][0]["NAME"] not in PORTED_MMD:
             raise ValueError(f"Not supported MMD method {methods[key][0]['NAME']} "
@@ -183,6 +182,9 @@ class DGTrainer:
                                            "global_feat")}
             d["node_offset"] = None if out["node_offset"] is None else out["node_offset"][rows]
             d["node_attn"] = out[attn]
+            if "regularizers" in out:
+                d["regularizers"] = [tuple(None if v is None else v[rows] for v in term)
+                                     for term in out["regularizers"]]
             return d
 
         return half(slice(0, B), "node_attn"), half(slice(B, 2 * B), "node_attn_t")
@@ -204,6 +206,10 @@ class DGTrainer:
         out_s, out_t = self._forward_both(data_s, data_t, fps_s, fps_t, train, grl_const)
         crit = self.criterion
         loss_s = 0.5 * crit(out_s["logits1"], label_s) + 0.5 * crit(out_s["logits2"], label_s)
+        loss_reg = None
+        if "regularizers" in out_s:  # the source forward's alone
+            loss_reg = p2p_fitting_regularizer(out_s["regularizers"])
+            loss_s = loss_s + loss_reg
 
         adv_weight = float(methods.get("ADV_WEIGHT", 0.0))
         loss_adv = torch.zeros((), device=data_s.device)
@@ -219,6 +225,8 @@ class DGTrainer:
             loss = float(methods.get("SRC_LOSS_WEIGHT", 1.0)) * loss_s
         loss_cls = float(methods.get("CLS_WEIGHT", 1.0)) * loss
         metrics = {"loss_cls": loss_cls, "loss_adv": loss_adv}
+        if loss_reg is not None:
+            metrics["loss_reg"] = loss_reg
 
         total = loss_cls
         if mmd_on:

@@ -7,9 +7,9 @@ as the JAX package chains ``add_decayed_weights`` and ``scale_by_adam``.
 
 The precision policy (``models/precision.py``) and the BN group count
 (``models/bn.py``) are read once, at construction, from ``cfg`` and the
-environment, and set on the model. The KPConv classifier is the rigid
-network, so its loss has no regularizer (deformable KPConv is item 17b of
-ROADMAP.md).
+environment, and set on the model. The KPConv classifier takes KPConv's
+defaults, as the JAX trainer builds it without MODEL_CFG, so its loss has
+no regularizer.
 """
 
 from __future__ import annotations

@@ -1,7 +1,7 @@
 """NetMDA, the twin-head DG model: counterpart of
 ``sug_tpu/models/net_mda.py`` for ``model_name`` "DGCNN", "PTran",
-"Pointnet", "Pointnet2" and "KPConv" (its rigid network on the grid
-pyramid, with the two ``KPConvHead``s), in eval and train mode: the
+"Pointnet", "Pointnet2" and "KPConv" (on either pyramid, rigid or
+deformable, with the two ``KPConvHead``s), in eval and train mode: the
 per-domain forward, the stacked both-domains forward (``domain="stacked"``)
 and the gradient-reversal layer. ``set_compute_dtype`` sets the bf16 policy
 (``models/precision.py``) on DGCNN, PTran and Pointnet; Pointnet2 and
@@ -37,9 +37,12 @@ class NetMDA(nn.Module):
 
     ``forward`` returns a dict: logits1, logits2 (B, num_class); sem1, sem2
     (B, 256); global_feat (B, 1024 for DGCNN, Pointnet and Pointnet2, 512
-    for PTran); node_flat (B, 64*64), flattened node-major; node_offset
-    (None for PTran and Pointnet2); and node_attn (domain 'source' or
-    'target') or node_attn and node_attn_t (domain 'both').
+    for PTran); node_flat (B, 64*64), flattened node-major (on KPConv's
+    FPS pyramid below 256 points, (B, max(N // 4, 4)·64)); node_offset (None
+    for PTran and Pointnet2); node_attn (domain 'source' or 'target') or
+    node_attn and node_attn_t (domain 'both'); and, for a KPConv with
+    deformable blocks, regularizers: its ops' terms for
+    ``kpconv.p2p_fitting_regularizer`` (2B rows in the stacked forward).
 
     ``domain="stacked"`` takes ``concat(source, target)`` (2B clouds) and
     runs the generator once over it, its BNs in the 2-group sequential
@@ -53,8 +56,9 @@ class NetMDA(nn.Module):
     feature before the heads, ``−λ·g``; in the stacked forward only the
     target half's, as the reference applies it to the target forward.
 
-    ``num_points`` sizes PTran's ``point_mix`` (flax sizes it at the first
-    call); DGCNN, Pointnet and KPConv take any cloud size, Pointnet2 any
+    ``num_points`` sizes PTran's ``point_mix`` and, on KPConv's FPS
+    pyramid, the attentions (flax sizes both at the first call); DGCNN,
+    Pointnet and KPConv's grid pyramid take any cloud size, Pointnet2 any
     from 512 points (its first FPS takes 512). ``model_cfg`` is KPConv's
     MODEL_CFG (other backbones ignore it, as in the JAX package).
     ``fps_start`` (B,) starts the first FPS (index 0 when None; KPConv's
@@ -73,10 +77,10 @@ class NetMDA(nn.Module):
                 "queued in ROADMAP.md under 'Modules to port'"
             )
         self.model_name = model_name
-        node_width = 64  # node_fea is (B, 64, node_width)
+        node_rows, node_width = 64, 64  # node_fea is (B, node_rows, node_width)
         if model_name == "KPConv":
             self.g = KPConvGenerator(model_cfg)
-            node_width = self.g.encoder.tap_dim
+            node_rows, node_width = self.g.node_rows(num_points), self.g.encoder.tap_dim
             self.c1 = KPConvHead(num_class, self.g.encoder.out_dim)
             self.c2 = KPConvHead(num_class, self.g.encoder.out_dim)
         else:
@@ -90,8 +94,8 @@ class NetMDA(nn.Module):
                 self.g = PointTransformerGenerator(num_points)
             self.c1 = ClassifierHead(num_class, HEAD_VARIANTS[model_name])
             self.c2 = ClassifierHead(num_class, HEAD_VARIANTS[model_name])
-        self.attention_s = CALayer(64 * node_width)
-        self.attention_t = CALayer(64 * node_width)
+        self.attention_s = CALayer(node_rows * node_width)
+        self.attention_t = CALayer(node_rows * node_width)
         flax_init_(self, generator)
         init_kpconv_weights_(self, generator)
 
@@ -113,10 +117,10 @@ class NetMDA(nn.Module):
             return self._stacked(pc, fps_start, generator, grl_constant)
         if domain not in DOMAINS:
             raise ValueError(f"domain must be one of {DOMAINS + ('stacked',)}, got {domain!r}")
-        feat, node_fea, node_off = self.g(pc, fps_start)
+        out: Dict[str, torch.Tensor] = {}
+        feat, node_fea, node_off = self._generate(pc, fps_start, out)
         node_flat = node_fea.reshape(feat.shape[0], -1)
-
-        out: Dict[str, torch.Tensor] = {"node_flat": node_flat, "node_offset": node_off}
+        out.update(node_flat=node_flat, node_offset=node_off)
         if domain in ("source", "both"):
             out["node_attn"] = self.attention_s(node_flat)
         if domain in ("target", "both"):
@@ -125,16 +129,27 @@ class NetMDA(nn.Module):
             feat = grad_reverse(feat, grl_constant)
         return self._heads(feat, out, generator)
 
+    def _generate(self, pc, fps_start, out):
+        """The generator's (feat, node_fea, node_offset); a KPConv's
+        regularizer terms, where it has deformable ops, go to
+        ``out["regularizers"]``."""
+        if self.model_name != "KPConv":
+            return self.g(pc, fps_start)
+        terms: list = []
+        feats = self.g(pc, fps_start, terms)
+        if terms:
+            out["regularizers"] = terms
+        return feats
+
     def _stacked(self, pc, fps_start, generator, grl_constant) -> Dict[str, torch.Tensor]:
+        out: Dict[str, torch.Tensor] = {}
         with stacked_bn(self.g):
-            feat, node_fea, node_off = self.g(pc, fps_start)
+            feat, node_fea, node_off = self._generate(pc, fps_start, out)
         B = feat.shape[0] // 2
         node_flat = node_fea.reshape(2 * B, -1)
-        out: Dict[str, torch.Tensor] = {
-            "node_flat": node_flat, "node_offset": node_off,
-            "node_attn": self.attention_s(node_flat[:B]),
-            "node_attn_t": self.attention_t(node_flat[B:]),
-        }
+        out.update(node_flat=node_flat, node_offset=node_off,
+                   node_attn=self.attention_s(node_flat[:B]),
+                   node_attn_t=self.attention_t(node_flat[B:]))
         if grl_constant is not None:
             feat = torch.cat([feat[:B], grad_reverse(feat[B:], grl_constant)])
         return self._heads(feat, out, generator)

@@ -9,8 +9,10 @@ same five), as nested dicts of numpy arrays, and returns the port's
 ``g/backbone/td0/mlp0/Dense_0``, ``g/point_mix``; PointNet's
 ``g/trans_net1/ConvBN_0``, ``g/conv1`` ... ``g/conv5``, ``g/bn1``,
 ``g/sa_node``; PointNet++'s ``g/sa1/mlp0``, the classifier's ``fc1``
-and ``BatchNorm_1``; KPConv's ``g/encoder/block1/unary1/Dense_0`` and
-``g/encoder/block1/KPConv``), so the bridge is a rename plus a transpose:
+and ``BatchNorm_1``; KPConv's ``g/encoder/block1/unary1/Dense_0``,
+``g/encoder/block1/KPConv`` and a deformable op's
+``.../KPConv/offset_conv`` and ``.../KPConv/offset_bias``), so the bridge
+is a rename plus a transpose:
 
 - module path: kept, with flax's auto-names renamed (``AUTONAMES``);
 - leaf: ``kernel`` -> ``weight`` (flax Dense ``(in, out)`` transposed to

@@ -98,11 +98,14 @@ def assert_rel_l2(got, want, bound):
 def port_weights_as_jax(jmodel, port_state, *init_args, seed: int = 5, **init_kwargs):
     """A JAX variable tree of ``jmodel`` filled from a port ``state_dict``
     (the tree's shapes from tracing the JAX init, which spares compiling
-    it), then randomised (``randomize_variables`` with ``seed``)."""
-    from sug_tpu_torch.utils.jax_bridge import torch_key
+    it), then randomised (``randomize_variables`` with ``seed``). Only the
+    params and BN statistics: a deformable KPConv's init also returns the
+    ``regularizers`` it sows."""
+    from sug_tpu_torch.utils.jax_bridge import COLLECTIONS, torch_key
 
     shapes = jax.eval_shape(lambda: jmodel.init(
         {"params": jax.random.key(0), "dropout": jax.random.key(1)}, *init_args, **init_kwargs))
+    shapes = {k: v for k, v in shapes.items() if k in COLLECTIONS}
 
     def leaf(path, shape):
         names = tuple(k.key for k in path)

@@ -234,18 +234,18 @@ def test_three_train_steps(setup, monkeypatch):
 
 
 def test_unported_config_raises(setup, monkeypatch):
-    """Deformable KPConv raises; bf16 for DGCNN, Pointnet and PTran, GRL,
-    the stacked forward, per-replica BN and every alignment the JAX trainer
-    takes are accepted; an unknown alignment raises ``ValueError``, as it
-    does in JAX."""
+    """KPConv under bf16, deformable or not, raises; bf16 for DGCNN,
+    Pointnet and PTran, GRL, the stacked forward, per-replica BN and every
+    alignment the JAX trainer takes are accepted; an unknown alignment
+    raises ``ValueError``, as it does in JAX."""
     cfg = setup[0]
     for model_name in ("DGCNN", "PTran"):
         assert tdt.DGTrainer({**cfg, "PRECISION": "bf16"}, model_name=model_name,
                              device="cpu").compute_dtype == torch.bfloat16
     deformable = ("simple", "resnetb_deformable")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdt.DGTrainer({**cfg, "MODEL_CFG": {"ARCHITECTURE": deformable}}, model_name="KPConv",
-                      device="cpu")
+        tdt.DGTrainer({**cfg, "PRECISION": "bf16", "MODEL_CFG": {"ARCHITECTURE": deformable}},
+                      model_name="KPConv", device="cpu")
     monkeypatch.setenv("SUG_STACKED_FORWARD", "1")
     methods = cfg["METHODS"]
     for name in ("CL", "HARD_MMD", "MAX_HARD_MMD"):

@@ -16,8 +16,8 @@ the encoder.
    gradients of its weights and input features; masked ``instance_norm``;
    ``SimpleBlock`` and ``ResnetBottleneckBlock``, strided and not;
 6. ``check_neighbor_occupancy``'s means, and the refusals: deformable
-   blocks, ``pyramid="fps"`` and bf16 raise ``NotImplementedError`` naming
-   their ROADMAP items.
+   blocks and ``pyramid="fps"`` now build, and bf16 raises
+   ``NotImplementedError`` naming its ROADMAP item.
 
 Tolerances, each with its cause:
 - voxel assignments, masks and neighbour indices: equal. A neighbour row
@@ -445,15 +445,21 @@ def test_blocks(case):
 # 6. refusals ---------------------------------------------------------------------
 
 def test_refusals_name_their_roadmap_items():
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        tk.kpconv_config({"pyramid": "fps"})
+    """The FPS pyramid and deformable blocks build (any ``pyramid`` but
+    "grid" is the FPS one, as in the JAX package); KPConv under bf16,
+    deformable or not, names item 17c."""
+    assert tk.kpconv_config({"pyramid": "fps"})["pyramid"] == "fps"
     arch = list(jk.KPCONV_DEFAULTS["architecture"])
     arch[3] = "resnetb_deformable"
-    with pytest.raises(NotImplementedError, match="item 17b"):
-        tk.KPConvGenerator({"architecture": tuple(arch)})
+    gen = tk.KPConvGenerator({"architecture": tuple(arch), "pyramid": "random"})
+    assert gen.encoder.block3.KPConv.offset_conv is not None
+    assert gen.encoder.block4.KPConv.offset_conv is None
+    assert gen.node_rows(128) == 32 and gen.node_rows(1024) == 64
     with pytest.raises(NotImplementedError, match="item 17c"):
         set_compute_dtype(tk.KPConvClassifier(), torch.bfloat16)
-    model = NetMDA("KPConv", model_cfg={"grid_capacities": (64, 32, 16, 8, 4)})
-    with pytest.raises(NotImplementedError, match="item 17c"):
-        model.set_compute_dtype(torch.bfloat16)
-    model.set_compute_dtype(None)  # f32 stays allowed
+    for cfg in ({"grid_capacities": (64, 32, 16, 8, 4)},
+                {"pyramid": "fps", "architecture": tuple(arch)}):
+        model = NetMDA("KPConv", model_cfg=cfg)
+        with pytest.raises(NotImplementedError, match="item 17c"):
+            model.set_compute_dtype(torch.bfloat16)
+        model.set_compute_dtype(None)  # f32 stays allowed

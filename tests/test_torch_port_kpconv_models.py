@@ -87,11 +87,13 @@ def jax_pyramid(pc, cfg):
 
 
 def as_port(pyr, dtype=torch.float32):
-    """A JAX pyramid as the port's tensors: floats in ``dtype``, idx int64."""
-    cast = lambda a: torch.from_numpy(np.asarray(a)).to(dtype)  # noqa: E731
-    pairs = lambda key: [(torch.from_numpy(np.asarray(i)).long(), cast(m))  # noqa: E731
+    """A JAX pyramid as the port's tensors: floats in ``dtype``, idx int64
+    (the FPS pyramid's ``valid`` None)."""
+    cast = lambda a: torch.from_numpy(np.array(a)).to(dtype)  # noqa: E731
+    pairs = lambda key: [(torch.from_numpy(np.array(i)).long(), cast(m))  # noqa: E731
                          for i, m in pyr[key]]
-    return {"points": [cast(p) for p in pyr["points"]], "valid": [cast(v) for v in pyr["valid"]],
+    valid = None if pyr["valid"] is None else [cast(v) for v in pyr["valid"]]
+    return {"points": [cast(p) for p in pyr["points"]], "valid": valid,
             "neighbors": pairs("neighbors"), "pools": pairs("pools")}
 
 
@@ -101,7 +103,7 @@ def replayed_pyramid(monkeypatch, *pyrs):
     order, instead of building its own."""
     it = iter(pyrs)
     with monkeypatch.context() as patch:
-        patch.setattr(tk, "build_pyramid", lambda pc, cfg: next(it))
+        patch.setattr(tk, "build_pyramid", lambda *args: next(it))
         yield
 
 

@@ -206,9 +206,11 @@ def test_trainer_builds_the_model_for_num_points(setup):
     assert tr.model.g.point_mix.in_features == N // 16
     with pytest.raises(ValueError, match="built for 1024 points"):
         tdt.DGTrainer(cfg, model_name="PTran", device="cpu").eval_logits(torch.zeros(1, N, 3))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdt.DGTrainer({**cfg, "MODEL_CFG": {"PYRAMID": "fps"}}, model_name="KPConv",
-                      device="cpu")
+    # KPConv's FPS pyramid: the node features have the tap level's N // 4
+    # rows below 256 points, and the attentions take that width
+    kp = tdt.DGTrainer({**cfg, "MODEL_CFG": {"PYRAMID": "fps"}}, model_name="KPConv",
+                       device="cpu", num_points=N)
+    assert kp.model.attention_s.dense0.in_features == N // 4 * 64
 
 
 @pytest.fixture(scope="module")

@@ -101,7 +101,7 @@ def test_grl_lambda_per_epoch(data_root, tmp_path, monkeypatch):
 
 
 def test_other_models_raise(data_root):
-    argv = _argv(data_root, 1) + ["MODEL_CFG.PYRAMID", "fps"]  # KPConv's FPS pyramid
+    argv = _argv(data_root, 1) + ["PRECISION", "bf16"]  # KPConv under bf16 (item 17c)
     argv[argv.index("DGCNN")] = "KPConv"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         train_dg_single_gpu.main(argv)
